@@ -1,0 +1,59 @@
+"""Carry the JAX package's run description across to the port, so that
+both packages can compute on identical inputs.
+
+``params_from_numpy`` takes the JAX ``Params`` as nested NamedTuples of
+numpy arrays (what ``jax.tree_util.tree_map(np.asarray, params)`` gives);
+``config_from_dict`` takes ``dataclasses.asdict(cfg)``.  Neither imports
+JAX: the NamedTuples are matched by class name and field names.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rays_tpu_torch.core import types
+from rays_tpu_torch.models import slab
+from rays_tpu_torch.rayinit import slab as slab_init
+
+_PARAM_TYPES = {
+    "Params": types.Params,
+    "SpeciesParams": types.SpeciesParams,
+    "RFParams": types.RFParams,
+    "OdeParams": types.OdeParams,
+    "Limits": types.Limits,
+    "SlabParams": slab.SlabParams,
+}
+
+
+def params_from_numpy(tree, device="cpu", dtype=torch.float64):
+    """JAX Params of numpy leaves -> the port's Params on ``device`` in
+    ``dtype``."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        name = type(tree).__name__
+        cls = _PARAM_TYPES.get(name)
+        if cls is None:
+            raise NotImplementedError(f"{name} has no counterpart in the port yet")
+        if tuple(cls._fields) != tuple(tree._fields):
+            raise ValueError(f"{name}: fields {tree._fields} != {cls._fields}")
+        return cls(*(params_from_numpy(x, device, dtype) for x in tree))
+    return torch.from_numpy(np.array(tree, dtype=np.float64)).to(
+        device=device, dtype=dtype)
+
+
+def config_from_dict(d):
+    """``dataclasses.asdict`` of a JAX Config -> the port's Config.  The
+    JAX-only ``fused_kernel`` switch is dropped."""
+    d = dict(d)
+    d.pop("fused_kernel", None)
+    if d.get("equilib_model") != "slab":
+        raise NotImplementedError(
+            f"equilib_model {d.get('equilib_model')!r} is not ported yet")
+    if d.get("ray_init_model") != "simple_slab":
+        raise NotImplementedError(
+            f"ray_init_model {d.get('ray_init_model')!r} is not ported yet")
+    eq = dict(d["eq_static"])
+    eq["t_prof_model"] = tuple(eq["t_prof_model"])
+    d["eq_static"] = slab.SlabStatic(**eq)
+    d["rayinit_static"] = slab_init.SlabInit(**d["rayinit_static"])
+    return types.Config(**d)

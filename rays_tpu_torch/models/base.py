@@ -1,0 +1,81 @@
+"""Generic equilibrium layer (``rays_tpu.models.base``).
+
+A model module provides, on a batch of points x (B, 3):
+
+  fields_and_jac(static, params, species, x)
+      -> ((bvec, ns, ts), (jb, jn, jt)), values and jacobians;
+  fields(static, params, species, x) -> (bvec, ns, ts);
+  geom_err(static, params, x) -> (B,) int32 StopCode, geometry only;
+  err(static, params, species, x) -> geometry + positivity.
+
+Only the slab is ported; the other geometries are ROADMAP A12 and A13.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rays_tpu_torch import constants
+from rays_tpu_torch.core.eq_point import EqPoint, RawEq, derive_eq_point
+from rays_tpu_torch.tracing.stop import StopCode
+
+
+def get_eq_model(name: str):
+    if name == "slab":
+        from rays_tpu_torch.models import slab
+
+        return slab
+    raise NotImplementedError(
+        f"equilib_model {name!r} is not ported yet (ROADMAP A12: solovev; "
+        f"A13: axisym_toroid, multiple_mirror)")
+
+
+def eq_fields(cfg, params, x):
+    """(bvec, ns, ts) at x."""
+    model = get_eq_model(cfg.equilib_model)
+    return model.fields(cfg.eq_static, params.eq, params.species, x)
+
+
+def eq_err(cfg, params, x):
+    model = get_eq_model(cfg.equilib_model)
+    return model.err(cfg.eq_static, params.eq, params.species, x)
+
+
+def _combine_err(geom_code, ns, ts):
+    """Positivity checks layered under the geometry code
+    (slab_eq_m.f90:303-306 et al.)."""
+    code = torch.zeros_like(geom_code)
+    code = torch.where(ts.amin(-1) < 0.0,
+                       torch.full_like(code, int(StopCode.NEGATIVE_TEMP)), code)
+    code = torch.where(ns.amin(-1) < 0.0,
+                       torch.full_like(code, int(StopCode.NEGATIVE_DENS)), code)
+    return torch.where(geom_code != 0, geom_code, code)
+
+
+def eq_point_light(cfg, params, x):
+    """Gradient-free plasma state: (alpha, gamma, bunit, ns, ts, err)."""
+    model = get_eq_model(cfg.equilib_model)
+    bvec, ns, ts = model.fields(cfg.eq_static, params.eq, params.species, x)
+    err = _combine_err(model.geom_err(cfg.eq_static, params.eq, x), ns, ts)
+    bmag = torch.sqrt((bvec**2).sum(-1))
+    bunit = bvec / bmag.clamp_min(constants.SAFE_TINY)[:, None]
+    sp = params.species
+    wratio = params.rf.omgrf_ref / params.rf.omgrf
+    alpha = sp.alpha_coef * ns * wratio**2
+    gamma = sp.gamma_coef * bmag[:, None] * wratio
+    return alpha, gamma, bunit, ns, ts, err
+
+
+def equilibrium(cfg, params, x) -> EqPoint:
+    """Full equilibrium point with gradients (reference
+    equilibrium_m.f90:135): one evaluation of the model's values and
+    jacobians, validity from the geometry check and the positivity of the
+    same ns and ts."""
+    model = get_eq_model(cfg.equilib_model)
+    (bvec, ns, ts), (jb, jn, jt) = model.fields_and_jac(
+        cfg.eq_static, params.eq, params.species, x)
+    err = _combine_err(model.geom_err(cfg.eq_static, params.eq, x), ns, ts)
+    # jb[b, j, i] = dB_j/dx_i  ->  gradb[b, i, j], the reference convention
+    raw = RawEq(bvec=bvec, gradb=jb.transpose(1, 2), ns=ns, gradns=jn,
+                ts=ts, gradts=jt, err=err)
+    return derive_eq_point(raw, params.species, params.rf)

@@ -1,0 +1,243 @@
+"""The slab RK4 trajectory as one CUDA kernel: the GPU forward path of the
+main slice.
+
+Replaces ``rays_tpu/tracing/fused_slab.py::trace_batch_fused``, the JAX
+package's only Pallas kernel.  The kernel (``csrc/slab_rk4.cu`` with the
+per-ray physics in ``csrc/slab_rk4.cuh``) runs one thread per ray, keeps
+the 7-slot state in registers for all ``nstep_max`` steps, carries the
+endpoint evaluation into the next step's first RK stage (4 equilibrium
+evaluations per step, the order of arithmetic of ``trace_batch``), and, on
+top of what the Pallas kernel did, writes the trajectory when
+``cfg.save_trajectory`` is on.  What bounds it on the card is FP64/FP32
+arithmetic (about 1.4k flops per ray step); it reads nothing from device
+memory between steps.
+
+``trace_batch_fused`` is the wrapper: on CUDA tensors it builds the kernel
+library at first use (nvcc, see ``native.py``), launches it on the current
+stream and counts the launch in ``LAUNCHES``; on CPU tensors it runs the
+plain twin.  A failed build or launch raises; nothing falls back.
+``trace_batch_fused_reference`` is the plain twin: the port's generic
+``trace_batch`` on the same inputs, with the same outputs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+
+import torch
+
+from rays_tpu_torch import native
+from rays_tpu_torch.tracing.trace import RayResults, trace_batch
+
+# launches of the CUDA kernel in this process (not of the plain twin)
+LAUNCHES = 0
+
+MAX_SPECIES = 6
+NV = 7
+
+# model numbering shared with csrc/slab_rk4.cuh
+_BY_MODELS = {"zero": 0, "constant": 1, "toroid": 2, "linear_shear": 3}
+_BZ_MODELS = {"zero": 0, "constant": 1, "toroid": 2, "linear": 3, "linear_2": 4}
+_DENS_MODELS = {"constant": 0, "linear": 1, "Gaussian": 2}
+_T_MODELS = {"zero": 0, "constant": 1, "linear": 2, "linear_2": 3, "parabolic": 4}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def supported(cfg) -> bool:
+    """Whether the kernel covers this run: the analytic slab with the
+    profile models of the Pallas kernel, cold dispersion without damping
+    or gradient diagnostics, fixed-step RK4, at most 6 species.  Unlike the
+    Pallas kernel it also writes trajectories (``save_trajectory``)."""
+    if cfg.equilib_model != "slab" or cfg.damping_model != "no_damp":
+        return False
+    if cfg.integrate_eq_gradients or cfg.ode_solver_name != "RK4_ODE":
+        return False
+    if cfg.ray_deriv_name != "cold" or cfg.ray_param not in ("arcl", "time"):
+        return False
+    st = cfg.eq_static
+    return (cfg.ns <= MAX_SPECIES
+            and st.bx_prof_model == "zero"
+            and st.by_prof_model in _BY_MODELS
+            and st.bz_prof_model in _BZ_MODELS
+            and st.dens_prof_model in _DENS_MODELS
+            and all(m in _T_MODELS for m in st.t_prof_model))
+
+
+# --- the run constants, field for field as rays::SlabRun<T> ---------------
+
+_SCALARS = ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax", "rmaj", "rmin", "x0",
+            "by0", "bz0", "lby_shear_scale", "lbz_scale", "dbzdx", "ln_scale",
+            "alphan1", "lt_scale", "dtdx")
+_SPECIES = ("alpha_coef", "gamma_coef", "n0s", "t0s", "alphat1", "alphat2", "t_min")
+_RUN = ("omgrf", "omgrf_ref", "k0", "ds", "s_max", "dispersion_resid_limit")
+_INTS = ("by_model", "bz_model", "dens_model", "time_param", "nstep_max",
+         "save_trajectory")
+
+
+def _struct_type(ctype):
+    class SlabRun(ctypes.Structure):
+        _fields_ = ([(n, ctype) for n in _SCALARS]
+                    + [(n, ctype * MAX_SPECIES) for n in _SPECIES]
+                    + [(n, ctype) for n in _RUN]
+                    + [(n, ctypes.c_int32) for n in _INTS]
+                    + [("t_model", ctypes.c_int32 * MAX_SPECIES)])
+    return SlabRun
+
+
+_RUN_STRUCTS = {torch.float64: _struct_type(ctypes.c_double),
+                torch.float32: _struct_type(ctypes.c_float)}
+_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+
+
+def _run_struct(cfg, params, dtype):
+    """Read the run constants from Params once (``.item()``)."""
+    run = _RUN_STRUCTS[dtype]()
+    for n in _SCALARS:
+        setattr(run, n, getattr(params.eq, n).item())
+    per_species = {**{n: getattr(params.species, n) for n in _SPECIES[:4]},
+                   **{n: getattr(params.eq, n) for n in _SPECIES[4:]}}
+    for n, t in per_species.items():
+        getattr(run, n)[:cfg.ns] = t.tolist()
+    run.omgrf = params.rf.omgrf.item()
+    run.omgrf_ref = params.rf.omgrf_ref.item()
+    run.k0 = params.rf.k0.item()
+    run.ds = params.ode.ds.item()
+    run.s_max = params.ode.s_max.item()
+    run.dispersion_resid_limit = params.limits.dispersion_resid_limit.item()
+    st = cfg.eq_static
+    run.by_model = _BY_MODELS[st.by_prof_model]
+    run.bz_model = _BZ_MODELS[st.bz_prof_model]
+    run.dens_model = _DENS_MODELS[st.dens_prof_model]
+    run.time_param = int(cfg.ray_param == "time")
+    run.nstep_max = cfg.nstep_max
+    run.save_trajectory = int(cfg.save_trajectory)
+    run.t_model[:cfg.ns] = [_T_MODELS[m] for m in st.t_prof_model]
+    return run
+
+
+def bind(lib):
+    """Declare the C interface of a slab RK4 library (the CUDA launchers or
+    the host build of the same body) and check the struct layout."""
+    vp = ctypes.c_void_p
+    for dtype, suffix in _SUFFIX.items():
+        size = getattr(lib, f"rays_slab_run_size_{suffix}")
+        size.argtypes, size.restype = [], ctypes.c_int
+        if size() != ctypes.sizeof(_RUN_STRUCTS[dtype]):
+            raise RuntimeError(
+                f"SlabRun<{suffix}> layout differs between csrc/slab_rk4.cuh "
+                f"({size()} bytes) and fused_slab.py "
+                f"({ctypes.sizeof(_RUN_STRUCTS[dtype])} bytes)")
+        fn = getattr(lib, f"rays_slab_rk4_{suffix}")
+        fn.argtypes = [vp, ctypes.c_int, vp, vp, ctypes.c_int64] + [vp] * 8
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the slab RK4 CUDA kernel cannot be built")
+
+
+@functools.lru_cache(maxsize=None)
+def load_library():
+    """Build (at first use) and load the CUDA kernel library.  Returns
+    (ctypes library, compiler output with the -Xptxas -v report)."""
+    nvcc = _nvcc()
+    files = [native.CSRC / "slab_rk4.cu", native.CSRC / "slab_rk4.cuh"]
+    path, log = native.build(
+        "slab_rk4", files,
+        lambda out: [nvcc, *NVCC_FLAGS, "-o", str(out), "slab_rk4.cu"])
+    return bind(ctypes.CDLL(str(path))), log
+
+
+def _check_inputs(cfg, v0, status0):
+    if not supported(cfg):
+        raise ValueError("config not supported by the slab RK4 kernel "
+                         "(fused_slab.supported)")
+    if v0.dim() != 2 or v0.shape[1] != NV:
+        raise ValueError(f"v0 must be (B, {NV}), got {tuple(v0.shape)}")
+    if v0.shape[0] == 0:
+        raise ValueError("empty ray batch")
+    if v0.dtype not in _RUN_STRUCTS:
+        raise ValueError(f"v0 must be float32 or float64, got {v0.dtype}")
+    if status0.shape != (v0.shape[0],) or status0.dtype != torch.int32:
+        raise ValueError("status0 must be int32 of shape (B,)")
+    if status0.device != v0.device:
+        raise ValueError("v0 and status0 must be on one device")
+    if not (v0.is_contiguous() and status0.is_contiguous()):
+        raise ValueError("v0 and status0 must be contiguous")
+
+
+def run_library(lib, cfg, params, v0, status0, pwr_wt, stream=None) -> RayResults:
+    """Call a bound slab RK4 library on tensors that its code can address
+    (CUDA tensors for the kernel, CPU tensors for the host build)."""
+    _check_inputs(cfg, v0, status0)
+    B, dt, dev = v0.shape[0], v0.dtype, v0.device
+    run = _run_struct(cfg, params, dt)
+
+    def empty(dtype):
+        return torch.empty((B,), dtype=dtype, device=dev)
+
+    v_out = torch.empty((B, NV), dtype=dt, device=dev)
+    stop, npoints = empty(torch.int32), empty(torch.int32)
+    end_res, max_res = empty(dt), empty(dt)
+    if cfg.save_trajectory:
+        # zero rows past each ray's stop are the kernel's by construction
+        traj = torch.zeros((cfg.nstep_max + 1, NV, B), dtype=dt, device=dev)
+        traj_res = torch.zeros((cfg.nstep_max + 1, B), dtype=dt, device=dev)
+        traj_ptrs = (traj.data_ptr(), traj_res.data_ptr())
+    else:
+        traj_ptrs = (None, None)
+
+    fn = getattr(lib, f"rays_slab_rk4_{_SUFFIX[dt]}")
+    rc = fn(ctypes.addressof(run), cfg.ns, v0.data_ptr(), status0.data_ptr(), B,
+            v_out.data_ptr(), stop.data_ptr(), npoints.data_ptr(),
+            end_res.data_ptr(), max_res.data_ptr(), *traj_ptrs, stream)
+    if rc != 0:
+        raise RuntimeError(f"slab RK4 kernel launch failed with CUDA error {rc}")
+
+    if cfg.save_trajectory:
+        ray_vec, residual = traj.permute(2, 0, 1), traj_res.permute(1, 0)
+    else:
+        ray_vec = torch.zeros((B, 1, NV), dtype=dt, device=dev)
+        residual = torch.zeros((B, 1), dtype=dt, device=dev)
+    return RayResults(
+        ray_vec=ray_vec, residual=residual, npoints=npoints, stop_flag=stop,
+        initial_ray_power=pwr_wt, end_residuals=end_res, max_residuals=max_res,
+        end_ray_parameter=v_out[:, 6], start_ray_vec=v0, end_ray_vec=v_out)
+
+
+def trace_batch_fused(cfg, params, v0, status0, pwr_wt) -> RayResults:
+    """The kernel wrapper.  CUDA tensors: launch the kernel on the current
+    stream (asynchronously; synchronize before timing).  CPU tensors: the
+    plain twin.  Trajectories come back as (B, nstep_max+1, 7) and
+    (B, nstep_max+1) views of the kernel's (step, slot, ray) buffers."""
+    global LAUNCHES
+    if v0.device.type == "cpu":
+        return trace_batch_fused_reference(cfg, params, v0, status0, pwr_wt)
+    if v0.device.type != "cuda":
+        raise ValueError(f"trace_batch_fused: unsupported device {v0.device}")
+    _check_inputs(cfg, v0, status0)
+    lib, _ = load_library()
+    stream = torch.cuda.current_stream(v0.device).cuda_stream
+    with torch.cuda.device(v0.device):
+        out = run_library(lib, cfg, params, v0, status0, pwr_wt, stream)
+    LAUNCHES += 1
+    return out
+
+
+def trace_batch_fused_reference(cfg, params, v0, status0, pwr_wt) -> RayResults:
+    """Plain twin of the kernel: the port's ``trace_batch`` on the same
+    inputs, on whatever device they are."""
+    _check_inputs(cfg, v0, status0)
+    return trace_batch(cfg, params, v0, status0, pwr_wt)

@@ -1,0 +1,119 @@
+"""The ray right-hand side: Hamiltonian geometrical-optics equations
+(``rays_tpu.tracing.rhs``; reference eqn_ray.f90), batched over rays.
+
+State layout in the ODE vector v (B, nv) (ode_m.f90:158-175):
+
+    v[:, 0:3] = x,  v[:, 3:6] = k,  v[:, 6] = integrated ray parameter
+
+The equilibrium is evaluated once per call; the statuses are the
+first-triggered StopCode in the reference's order (equilibrium error ->
+infinite Vg -> ray stalled, eqn_ray.f90:89-169).  Damping, the
+equilibrium-gradient diagnostics and the autodiff derivative path are
+later slices (ROADMAP A11, A14) and raise here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rays_tpu_torch import constants
+from rays_tpu_torch.models import base
+from rays_tpu_torch.tracing.stop import StopCode
+from rays_tpu_torch.wave import deriv_cold as deriv_cold_mod
+from rays_tpu_torch.wave import dispersion
+
+
+def check_ported(cfg):
+    """Raise for the RHS options that later slices port."""
+    if cfg.damping_model != "no_damp":
+        raise NotImplementedError(
+            f"damping_model {cfg.damping_model!r} is not ported yet (ROADMAP A11)")
+    if cfg.integrate_eq_gradients:
+        raise NotImplementedError(
+            "integrate_eq_gradients is not ported yet (ROADMAP A14)")
+    if cfg.ray_deriv_name != "cold":
+        # the JAX package's autodiff path reads an undefined name
+        # (ROADMAP C1); its port is ROADMAP A14
+        raise NotImplementedError(
+            f"ray_deriv_name {cfg.ray_deriv_name!r} is not ported yet (ROADMAP A14)")
+    if cfg.ray_param not in ("arcl", "time"):
+        raise ValueError(f"eqn_ray: invalid ray_param {cfg.ray_param}")
+
+
+def eqn_ray(cfg, params, s, v):
+    """RHS at ray parameter s for v (B, nv).  Returns (dvds, status)."""
+    eq = base.equilibrium(cfg, params, v[:, 0:3])
+    return _eqn_ray_from_eq(cfg, params, s, v, eq)
+
+
+def _eqn_ray_from_eq(cfg, params, s, v, eq):
+    """Everything in eqn_ray after the equilibrium evaluation."""
+    check_ported(cfg)
+    kvec = v[:, 3:6]
+    omgrf, k0 = params.rf.omgrf, params.rf.k0
+    tiny = constants.SAFE_TINY
+
+    dddx, dddk, dddw = deriv_cold_mod.deriv_cold(eq, kvec / k0, omgrf, k0)
+
+    # group velocity (eqn_ray.f90:131-144)
+    safe_dddw = torch.where(dddw == 0.0, torch.ones_like(dddw), dddw)[:, None]
+    dddk_mag = torch.sqrt((dddk**2).sum(-1))
+
+    if cfg.ray_param == "arcl":
+        # integrate w.r.t. arclength (eqn_ray.f90:150-170);
+        # Fortran sign(1., dddw) is +1 at dddw == 0
+        sgn = torch.where(dddw >= 0.0, 1.0, -1.0).to(v.dtype)[:, None]
+        m = dddk_mag.clamp_min(tiny)[:, None]
+        dxds = -sgn * dddk / m
+        dkds = sgn * dddx / m
+        dsd_ray_param = torch.ones_like(dddw)
+    else:
+        # integrate w.r.t. time (eqn_ray.f90:172-181)
+        dxds = -dddk / safe_dddw
+        dkds = dddx / safe_dddw
+        dsd_ray_param = torch.sqrt((dxds**2).sum(-1))   # |vg|
+
+    dvds = torch.cat([dxds, dkds, dsd_ray_param[:, None]], dim=1)
+
+    status = torch.zeros_like(eq.err)
+    if cfg.ray_param == "arcl":
+        status = torch.where(dddk_mag == 0.0,
+                             torch.full_like(status, int(StopCode.RAY_STALLED)), status)
+    status = torch.where(dddw == 0.0,
+                         torch.full_like(status, int(StopCode.INFINITE_VG)), status)
+    status = torch.where(eq.err != 0, eq.err, status)
+    return dvds, status
+
+
+def check_save(cfg, params, v):
+    """Per-step validity checks on v (reference check_save.f90).
+    Returns (resid, status), each (B,)."""
+    alpha, gamma, bunit, _, _, err = base.eq_point_light(cfg, params, v[:, 0:3])
+    return _check_from_point(cfg, params, alpha, gamma, bunit, err, v)
+
+
+def _check_from_point(cfg, params, alpha, gamma, bunit, err, v):
+    """check_save given the plasma state already evaluated at v[:, 0:3]."""
+    kvec = v[:, 3:6]
+    k0 = params.rf.k0
+    k3 = (kvec * bunit).sum(-1)
+    k1 = torch.sqrt(((kvec - k3[:, None] * bunit) ** 2).sum(-1))
+    resid = dispersion.residual(alpha, gamma, k1 / k0, k3 / k0)
+
+    status = torch.zeros_like(err)
+    status = torch.where(resid > params.limits.dispersion_resid_limit,
+                         torch.full_like(status, int(StopCode.DISPERSION_RESIDUAL)),
+                         status)
+    status = torch.where(err != 0, err, status)
+    return resid, status
+
+
+def eqn_ray_and_check(cfg, params, s, v):
+    """The RHS and the check_save monitor at the same point from one
+    equilibrium evaluation.  Returns (dvds, rhs_status, resid, check_status).
+    The tracer carries dvds into the next step's first RK stage."""
+    eq = base.equilibrium(cfg, params, v[:, 0:3])
+    dvds, rhs_status = _eqn_ray_from_eq(cfg, params, s, v, eq)
+    resid, check_status = _check_from_point(
+        cfg, params, eq.alpha, eq.gamma, eq.bunit, eq.err, v)
+    return dvds, rhs_status, resid, check_status

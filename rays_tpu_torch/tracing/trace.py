@@ -1,0 +1,151 @@
+"""Batched ray tracing (``rays_tpu.tracing.trace``): a loop over steps
+with mask-and-freeze stop semantics over a (B, nv) ray batch.
+
+Stop-check order per outer step matches the reference tracing loop
+(ray_tracing.f90:116-245):
+  1. sout > s_max           (before stepping, :128-147)
+  2. step budget            (loop length; flag NSTEP_MAX if still live)
+  3. stops inside the solver (RHS statuses, :177-197)
+  4. check_save stops        (residual, :212-234)
+A step rejected by (3) or (4) leaves the ray state unchanged and is not
+recorded.
+
+``trace_batch`` is plain PyTorch and runs on any device.  ``trace_rays``
+is the top-level dispatch: the plain tracer for CPU tensors, the CUDA
+kernel (tracing/fused_slab.py) for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from rays_tpu_torch.core.types import tree_leaves
+from rays_tpu_torch.tracing import rhs as rhs_mod
+from rays_tpu_torch.tracing import rk4
+from rays_tpu_torch.tracing.stop import StopCode
+
+
+class RayResults(NamedTuple):
+    """Analog of the reference results store (ray_results_m.f90:44-58)."""
+
+    ray_vec: Any            # (B, nstep_max+1, nv); zeros beyond npoints
+    residual: Any           # (B, nstep_max+1)
+    npoints: Any            # (B,) int32
+    stop_flag: Any          # (B,) int32 StopCode
+    initial_ray_power: Any  # (B,)
+    end_residuals: Any      # (B,)
+    max_residuals: Any      # (B,)
+    end_ray_parameter: Any  # (B,)
+    start_ray_vec: Any      # (B, nv)
+    end_ray_vec: Any        # (B, nv)
+
+
+def trace_rays(cfg, params, v0, status0, pwr_wt) -> RayResults:
+    """Top-level tracer dispatch (reference trace_rays,
+    ray_tracing.f90:1).
+
+    CPU tensors run the plain ``trace_batch``.  CUDA tensors run the slab
+    RK4 CUDA kernel when ``fused_slab.supported(cfg)``; any other config
+    on CUDA raises, never falling back to the plain tracer.  Gradients
+    through the tracer are the adjoint slice (ROADMAP A9): a Params leaf
+    that requires grad is refused."""
+    if any(leaf.requires_grad for leaf in tree_leaves(params)):
+        raise NotImplementedError(
+            "gradients through trace_rays are not ported yet (ROADMAP A9)")
+    if v0.device.type == "cpu":
+        return trace_batch(cfg, params, v0, status0, pwr_wt)
+    if v0.device.type == "cuda":
+        from rays_tpu_torch.tracing import fused_slab
+
+        if not fused_slab.supported(cfg):
+            raise NotImplementedError(
+                "on CUDA only the slab RK4 cold no-damping config runs "
+                "(tracing/fused_slab.supported); this config is not ported "
+                "to the GPU yet")
+        return fused_slab.trace_batch_fused(cfg, params, v0, status0, pwr_wt)
+    raise ValueError(f"trace_rays: unsupported device {v0.device}")
+
+
+def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
+    """Trace a batch of rays in plain PyTorch.  v0: (B, nv); status0: (B,)
+    int32 (nonzero entries, e.g. padding rays, never start); pwr_wt: (B,).
+
+    The endpoint evaluation that feeds check_save also supplies the next
+    step's first RK stage (rhs.eqn_ray_and_check), so each outer step pays
+    4 equilibrium evaluations."""
+    if cfg.ode_solver_name != "RK4_ODE":
+        raise NotImplementedError(
+            f"ode_solver_name {cfg.ode_solver_name!r} is not ported yet "
+            "(ROADMAP A10)")
+    rhs_mod.check_ported(cfg)
+    ds, s_max = params.ode.ds, params.ode.s_max
+    B, nv = v0.shape
+    dev, dt = v0.device, v0.dtype
+
+    # initial validity check (ray_tracing.f90:100-112); the initial residual
+    # is recorded as 0 ("assume initial k solves the dispersion relation",
+    # ray_tracing.f90:93).  The same evaluation seeds the first step's k1.
+    zero_s = torch.zeros((), dtype=dt, device=dev)
+    f1, st1, _, chk0 = rhs_mod.eqn_ray_and_check(cfg, params, zero_s, v0)
+    status = torch.where(status0 != 0, status0.to(torch.int32), chk0)
+
+    v = v0
+    nstep = torch.zeros((B,), dtype=torch.int32, device=dev)
+    end_res = torch.zeros((B,), dtype=dt, device=dev)
+    max_res = torch.zeros((B,), dtype=dt, device=dev)
+    if cfg.save_trajectory:
+        ray_vec = torch.zeros((B, cfg.nstep_max + 1, nv), dtype=dt, device=dev)
+        residual = torch.zeros((B, cfg.nstep_max + 1), dtype=dt, device=dev)
+        ray_vec[:, 0] = v0
+    sout_gt = torch.full_like(status, int(StopCode.SOUT_GT_SMAX))
+
+    for k in range(cfg.nstep_max):
+        s = k * ds
+        sout = (k + 1) * ds
+
+        active = status == 0
+        status = torch.where(active & (sout > s_max), sout_gt, status)
+        active = status == 0
+
+        v_new, solver_st = rk4.rk4_step_carried(cfg, params, s, v, f1, st1)
+        f_new, rhs_st_new, resid, check_st = rhs_mod.eqn_ray_and_check(
+            cfg, params, sout, v_new)
+        status = torch.where(active & (solver_st != 0), solver_st, status)
+        accepted = active & (solver_st == 0)
+        status = torch.where(accepted & (check_st != 0), check_st, status)
+        ok = accepted & (check_st == 0)
+
+        okc = ok[:, None]
+        v = torch.where(okc, v_new, v)
+        # the endpoint RHS becomes the next step's k1; a frozen ray keeps
+        # the stage matching its frozen state
+        f1 = torch.where(okc, f_new, f1)
+        st1 = torch.where(ok, rhs_st_new, st1)
+        nstep = nstep + ok.to(torch.int32)
+        end_res = torch.where(ok, resid, end_res)
+        max_res = torch.where(ok, torch.maximum(max_res, resid), max_res)
+        if cfg.save_trajectory:
+            ray_vec[:, k + 1] = torch.where(okc, v, 0.0)
+            residual[:, k + 1] = torch.where(ok, resid, 0.0)
+
+    # still-live rays exhausted the step budget (ray_tracing.f90:150-172)
+    status = torch.where(status == 0, torch.full_like(status, int(StopCode.NSTEP_MAX)),
+                         status)
+    if not cfg.save_trajectory:
+        ray_vec = torch.zeros((B, 1, nv), dtype=dt, device=dev)
+        residual = torch.zeros((B, 1), dtype=dt, device=dev)
+
+    return RayResults(
+        ray_vec=ray_vec,
+        residual=residual,
+        npoints=1 + nstep,
+        stop_flag=status,
+        initial_ray_power=pwr_wt,
+        end_residuals=end_res,
+        max_residuals=max_res,
+        end_ray_parameter=v[:, 6],
+        start_ray_vec=v0,
+        end_ray_vec=v,
+    )

@@ -1,0 +1,72 @@
+"""rays_tpu_torch stands alone: it imports neither JAX nor the JAX package,
+and without a CUDA device its CUDA paths raise instead of running on the
+CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from rays_tpu_torch import examples, run as trun
+from rays_tpu_torch.tracing import fused_slab
+from rays_tpu_torch.tracing.trace import trace_rays
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("modules", [
+    "rays_tpu_torch",
+    "rays_tpu_torch.run, rays_tpu_torch.tracing.fused_slab",
+    "rays_tpu_torch.convert, rays_tpu_torch.examples, rays_tpu_torch.native",
+])
+def test_import_pulls_in_no_jax(modules):
+    code = (f"import sys, {modules}\n"
+            "bad = sorted(m for m in sys.modules if m.startswith('jax')"
+            " or m == 'rays_tpu' or m.startswith('rays_tpu.'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the behaviour without one")
+
+
+def test_cuda_inputs_raise_without_cuda():
+    _no_cuda()
+    with pytest.raises((RuntimeError, AssertionError)):
+        examples.setup_example(examples.SLAB_ECH_90GHZ, device="cuda")
+
+
+def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
+    _no_cuda()
+    path = tmp_path / "slab.in"
+    path.write_text(examples.SLAB_ECH_90GHZ)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises((RuntimeError, AssertionError)):
+        trun.main([str(path), "--netcdf"])
+    assert not list(tmp_path.glob("run_results.*"))
+
+
+def test_non_cpu_tensors_never_run_the_plain_tracer():
+    """Tensors off the CPU go to the kernel or raise; 'meta' stands in for
+    a device the port has no path for."""
+    cfg, params, v0, st, pwr = examples.setup_example(examples.SLAB_ECH_90GHZ)
+    before = fused_slab.LAUNCHES
+    with pytest.raises(ValueError, match="unsupported device"):
+        trace_rays(cfg, params, v0.to("meta"), st.to("meta"), pwr.to("meta"))
+    assert fused_slab.LAUNCHES == before
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch):
+    """No nvcc: the build raises (and nothing runs in the kernel's place)."""
+    monkeypatch.setattr(fused_slab.shutil, "which", lambda name: None)
+    monkeypatch.setattr(fused_slab.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fused_slab._nvcc()
