@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Chip smoke test of rays_tpu_torch on one NVIDIA GPU (H100, sm_90a).
 
-Drives the port's main path, the slab ECH 90 GHz RK4 case, on the card:
-builds the slab RK4 CUDA kernel from rays_tpu_torch/csrc, holds it to its
-plain PyTorch twin on the card, times both at 32,768 rays x 500 steps in
-float32 and float64, and runs the CLI end to end.  Each phase prints one
-line; the first failure raises and the script exits non-zero.
+Drives the port's paths on the card: builds the slab RK4 CUDA kernel
+libraries from rays_tpu_torch/csrc (undamped and the two damped variants,
+side by side), holds the kernel to its plain PyTorch twin on the card,
+times both, runs the CLI, and runs one training step of the damped slab
+(trace, deposition profile, gradients of every Params leaf through the
+plain tracer, checked against the kernel's forward and a finite
+difference).  Each phase prints one line; the first failure raises and the
+script exits non-zero.
 
     python3 chip_smoke.py          # from the root of a checkout
 
-The last two lines are a JSON summary of the kernels and
-{"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
-and prints no result.
+Phases 1-6: the undamped slab ECH 90 GHz main path (32,768 rays x 500
+steps).  Phase 7: the damped example through the kernel.  Phase 8: the
+damped batch, 32,768 rays x 400 steps, f64 and f32, timed.  Phase 9: the
+training step of __graft_entry__.py on one GPU.  The last lines are the
+total wall time, a JSON summary of the kernels and {"ok": true, "device":
+{...}}.  Without a CUDA device it exits non-zero and prints no result.
 """
 
 import dataclasses
@@ -23,13 +29,20 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
-N_RAYS = 32768          # the batch of bench.py (rays_tpu), 500 steps each
+N_RAYS = 32768          # the batch of bench.py (rays_tpu)
 TRAJ_RTOL = 1e-7        # f64 kernel vs plain twin, of trajectory scale
+ABSORB_ATOL = 1e-9      # f64 kernel vs plain twin, absorption slots
 RESID_MAX_F64 = 1e-6
 F32_RTOL = 5e-4         # f32 kernel vs f64 plain (tests/test_fused.py bounds)
+F32_ABSORB_ATOL = 2e-4  # (tests/test_precision.py:104-112)
 RESID_MAX_F32 = 5e-3
+LOSS_RTOL = 1e-10       # training loss: kernel forward vs autograd forward
+FD_RTOL = 2e-4          # directional derivative vs central difference
+FD_EPS = 1e-7           # relative step of the finite difference
+N_BINS = 32
 
 
 def fail(msg):
@@ -55,6 +68,11 @@ def scaled_err(got, ref, per_ray_axis):
     return worst
 
 
+def absorb_err(got, ref):
+    """max |got - ref| over the absorption slots (7 and up)."""
+    return float((got[..., 7:].double() - ref[..., 7:].double()).abs().max())
+
+
 def timed(fn):
     """Milliseconds of one call by CUDA events, after synchronizing."""
     start = torch.cuda.Event(enable_timing=True)
@@ -67,7 +85,20 @@ def timed(fn):
     return start.elapsed_time(end), out
 
 
+def time_plain_and_kernel(fused_slab, cfg, params, v, st, w):
+    """(kernel ms, plain ms, the four runs) in the order plain, kernel,
+    kernel, plain, after a warm-up of each."""
+    short = dataclasses.replace(cfg, nstep_max=5)
+    fused_slab.trace_batch_fused_reference(short, params, v, st, w)   # warm-up
+    fused_slab.trace_batch_fused(cfg, params, v, st, w)               # warm-up
+    plain = lambda: fused_slab.trace_batch_fused_reference(cfg, params, v, st, w)
+    kern = lambda: fused_slab.trace_batch_fused(cfg, params, v, st, w)
+    runs = [timed(f)[0] for f in (plain, kern, kern, plain)]
+    return (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2, runs
+
+
 def main():
+    t_start = time.perf_counter()
     # phase 1: the device
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -85,23 +116,27 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from rays_tpu_torch import examples, run as runner
-    from rays_tpu_torch.core.types import tree_to
+    from rays_tpu_torch.core.types import tree_leaves, tree_map, tree_to
+    from rays_tpu_torch.post.deposition import calculate_deposition_profile
     from rays_tpu_torch.results.netcdf import read_results_nc
     from rays_tpu_torch.tracing import fused_slab
     from rays_tpu_torch.tracing.stop import StopCode, flag_string
     from rays_tpu_torch.tracing.trace import trace_rays
 
-    # phase 2: build the kernel library from the sources in the checkout
+    # phase 2: build the kernel libraries from the sources in the checkout
     t0 = time.perf_counter()
-    _, log = fused_slab.load_library()
+    libs = fused_slab.load_libraries()
     build_s = time.perf_counter() - t0
     # -Xptxas -v: registers and spill stores of each instantiation
-    ptxas = [f"{'f64' if m[1] == 'd' else 'f32'} S={m[2]} {m[4]} regs {m[3]} B spilled"
-             for m in re.finditer(r"slab_rk4_kernelI([fd])Li(\d)E.*?(\d+) bytes spill "
-                                  r"stores.*?Used (\d+) registers", log, re.S)]
-    require(ptxas, f"no sm_90a ptxas report in the build log:\n{log}")
-    print(f"phase 2 build: slab_rk4 for sm_90a in {build_s:.1f} s; ptxas: "
-          + ", ".join(ptxas))
+    reports = []
+    for variant, (_, log) in libs.items():
+        ptxas = [f"{'f64' if m[1] == 'd' else 'f32'} S={m[2]} {m[5]} regs {m[4]} B spilled"
+                 for m in re.finditer(r"slab_rk4_kernelI([fd])Li(\d)ELi(\d)E.*?(\d+) bytes "
+                                      r"spill stores.*?Used (\d+) registers", log, re.S)]
+        require(ptxas, f"no sm_90a ptxas report in the build log of variant {variant}:\n{log}")
+        reports.append(f"variant {variant}: " + ", ".join(ptxas))
+    print(f"phase 2 build: slab_rk4 variants {sorted(libs)} for sm_90a in {build_s:.1f} s "
+          f"(built side by side); ptxas: " + "; ".join(reports))
 
     # phase 3: the example, 3 rays x 500 steps, trajectories on
     dev = torch.device("cuda", 0)
@@ -161,13 +196,7 @@ def main():
     # phase 5: timing, plain / kernel / kernel / plain, per dtype
     times = {}
     for dt, p_, v_, w_ in ((f32, params32, vb32, wb32), (f64, params, vb, wb)):
-        short = dataclasses.replace(cfg_b, nstep_max=5)
-        fused_slab.trace_batch_fused_reference(short, p_, v_, stb, w_)   # warm-up
-        fused_slab.trace_batch_fused(cfg_b, p_, v_, stb, w_)              # warm-up
-        plain = lambda: fused_slab.trace_batch_fused_reference(cfg_b, p_, v_, stb, w_)
-        kern = lambda: fused_slab.trace_batch_fused(cfg_b, p_, v_, stb, w_)
-        runs = [timed(f)[0] for f in (plain, kern, kern, plain)]
-        t_plain, t_kern = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+        t_kern, t_plain, runs = time_plain_and_kernel(fused_slab, cfg_b, p_, v_, stb, w_)
         times[dt] = (t_kern, t_plain)
         name = "f32" if dt == f32 else "f64"
         print(f"phase 5 {name} {N_RAYS} rays x {cfg.nstep_max} steps: kernel "
@@ -197,17 +226,170 @@ def main():
     print(f"phase 6 CLI: run_results.{cfg.run_label}.nc read back, npoints "
           f"{nc['npoints'].tolist()} flags {nc_flags}")
 
-    t_kern, t_plain = times[f64]
-    print(json.dumps({"kernels": [{
-        "name": "slab_rk4",
-        "route": "cuda",
-        "source": "rays_tpu_torch/csrc/slab_rk4.cu",
-        "replaces": "rays_tpu/tracing/fused_slab.py:348",
-        "launches": main_launches,
-        "max_abs_err": abs64,
-        "ms": t_kern,
-        "plain_ms": t_plain,
-    }]}))
+    # phase 7: the damped example through the kernel, 3 rays x 400 steps
+    cfg_d, params_d, v0_d, st0_d, pwr_d = examples.setup_example(
+        examples.SLAB_ECH_DAMPED, device=dev, dtype=f64)
+    require(cfg_d.save_trajectory and fused_slab.supported(cfg_d),
+            "the damped example must ride the kernel with save_trajectory on")
+    before = fused_slab.LAUNCHES
+    dk = trace_rays(cfg_d, params_d, v0_d, st0_d, pwr_d)
+    torch.cuda.synchronize()
+    require(fused_slab.LAUNCHES > before, "trace_rays did not launch the damped kernel")
+    dp = fused_slab.trace_batch_fused_reference(cfg_d, params_d, v0_d, st0_d, pwr_d)
+    require(torch.equal(dk.npoints, dp.npoints), "damped npoints differ")
+    require(torch.equal(dk.stop_flag, dp.stop_flag), "damped stop flags differ")
+    d_err = scaled_err(dk.ray_vec, dp.ray_vec, per_ray_axis=1)
+    d_abs = absorb_err(dk.ray_vec, dp.ray_vec)
+    absorbed = dk.end_ray_vec[:, 7].tolist()
+    require(d_err <= TRAJ_RTOL, f"damped trajectory error {d_err:.3e} > {TRAJ_RTOL}")
+    require(d_abs <= ABSORB_ATOL, f"damped absorption error {d_abs:.3e} > {ABSORB_ATOL}")
+    require(max(absorbed) > 1e-3, f"no ray absorbed more than 1e-3: {absorbed}")
+    print(f"phase 7 damped example f64 (nv {cfg_d.nv}): npoints {dk.npoints.tolist()} "
+          f"flags {[flag_string(c) for c in dk.stop_flag.tolist()]} absorbed "
+          f"{[f'{a:.6f}' for a in absorbed]}; kernel vs plain trajectory err "
+          f"{d_err:.3e} of scale, absorption err {d_abs:.3e}")
+
+    # phase 8: the damped batch, 32,768 rays x 400 steps, summaries only
+    cfg_db = dataclasses.replace(cfg_d, save_trajectory=False)
+    vd, std, wd = examples.replicate_rays(v0_d, st0_d, pwr_d, N_RAYS)
+    fused_slab.LAUNCHES = 0
+    db64 = trace_rays(cfg_db, params_d, vd, std, wd)
+    torch.cuda.synchronize()
+    damped_launches = fused_slab.LAUNCHES
+    require(damped_launches >= 1, "the damped batch did not launch the kernel")
+    dplain = fused_slab.trace_batch_fused_reference(cfg_db, params_d, vd, std, wd)
+    require(torch.equal(db64.npoints, dplain.npoints), "damped f64 npoints differ")
+    require(torch.equal(db64.stop_flag, dplain.stop_flag), "damped f64 flags differ")
+    db_err = scaled_err(db64.end_ray_vec, dplain.end_ray_vec, per_ray_axis=-1)
+    db_abs = absorb_err(db64.end_ray_vec, dplain.end_ray_vec)
+    db_max_abs = float((db64.end_ray_vec - dplain.end_ray_vec).abs().max())
+    require(db_err <= TRAJ_RTOL, f"damped f64 endpoint error {db_err:.3e} > {TRAJ_RTOL}")
+    require(db_abs <= ABSORB_ATOL, f"damped f64 absorption error {db_abs:.3e}")
+    params_d32 = tree_to(params_d, dtype=f32)
+    vd32, wd32 = vd.to(f32), wd.to(f32)
+    db32 = fused_slab.trace_batch_fused(cfg_db, params_d32, vd32, std, wd32)
+    torch.cuda.synchronize()
+    require(torch.equal(db32.npoints, dplain.npoints), "damped f32 npoints differ from f64")
+    require(torch.equal(db32.stop_flag, dplain.stop_flag), "damped f32 flags differ from f64")
+    db32_err = scaled_err(db32.end_ray_vec, dplain.end_ray_vec, per_ray_axis=-1)
+    db32_abs = float((db32.end_ray_vec[:, 7].double() - dplain.end_ray_vec[:, 7]).abs().max())
+    require(db32_err <= F32_RTOL, f"damped f32 endpoint error {db32_err:.3e} > {F32_RTOL}")
+    require(db32_abs <= F32_ABSORB_ATOL,
+            f"damped f32 absorption error {db32_abs:.3e} > {F32_ABSORB_ATOL}")
+    print(f"phase 8 damped {N_RAYS} rays x {cfg_d.nstep_max} steps: launches "
+          f"{damped_launches}; f64 kernel vs plain endpoint err {db_err:.3e} of scale, "
+          f"absorption err {db_abs:.3e}; f32 kernel vs f64 plain {db32_err:.3e} of "
+          f"scale, absorption err {db32_abs:.3e}; npoints "
+          f"{sorted(set(db64.npoints.tolist()))}")
+    damped_times = {}
+    for dt, p_, v_, w_ in ((f32, params_d32, vd32, wd32), (f64, params_d, vd, wd)):
+        t_kern, t_plain, runs = time_plain_and_kernel(fused_slab, cfg_db, p_, v_, std, w_)
+        damped_times[dt] = (t_kern, t_plain)
+        name = "f32" if dt == f32 else "f64"
+        print(f"phase 8 damped {name} {N_RAYS} rays x {cfg_d.nstep_max} steps: kernel "
+              f"{t_kern:.3f} ms ({N_RAYS / t_kern * 1e3:.0f} rays/s; runs "
+              f"{runs[1]:.3f}, {runs[2]:.3f}), plain {t_plain:.1f} ms "
+              f"({N_RAYS / t_plain * 1e3:.0f} rays/s; runs {runs[0]:.1f}, "
+              f"{runs[3]:.1f}), speedup {t_plain / t_kern:.1f}x on {card}")
+
+    # phase 9: the training step of __graft_entry__.py on one GPU
+    xmin, xmax = float(params_d.eq.xmin), float(params_d.eq.xmax)
+
+    def loss_of(res, p):
+        prof = calculate_deposition_profile(cfg_d, p, res, "Ptotal_x", n_bins=N_BINS,
+                                            xmin=xmin, xmax=xmax)
+        return ((res.end_ray_vec[:, 0:3] ** 2 * res.initial_ray_power[:, None]).sum()
+                + (prof.profile ** 2).sum())
+
+    def with_grad(p):
+        return tree_map(lambda t: t.detach().clone().requires_grad_(True), p)
+
+    def train_step(v, st, w):
+        """(loss, grads, forward ms, backward ms, peak bytes) through the
+        adjoint route of trace_rays."""
+        pg = with_grad(params_d)
+        leaves = tree_leaves(pg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = loss_of(trace_rays(cfg_d, pg, v, st, w), pg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return (loss.detach(), grads, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                torch.cuda.max_memory_allocated())
+
+    def kernel_loss(p, v, st, w):
+        before = fused_slab.LAUNCHES
+        with torch.no_grad():
+            res = trace_rays(cfg_d, p, v, st, w)
+            out = loss_of(res, p)
+        require(fused_slab.LAUNCHES > before, "the kernel forward did not launch the kernel")
+        return out, res
+
+    vd9, std9, wd9 = vd, std, wd     # the phase-8 batch, trajectories on
+    loss9, grads9, fwd_ms, bwd_ms, peak = train_step(vd9, std9, wd9)
+    n_leaves = len(grads9)
+    bad = [i for i, g in enumerate(grads9) if not bool(torch.isfinite(g).all())]
+    require(not bad, f"non-finite gradients in leaves {bad}")
+    lossk, _ = kernel_loss(params_d, vd9, std9, wd9)
+    loss_rel = abs(float(lossk) - float(loss9)) / abs(float(loss9))
+    require(loss_rel <= LOSS_RTOL,
+            f"kernel-forward loss {float(lossk)!r} vs autograd {float(loss9)!r}: {loss_rel:.3e}")
+    print(f"phase 9 training step {N_RAYS} rays x {cfg_d.nstep_max} steps f64 "
+          f"(trajectories on, {N_BINS} bins): loss {float(loss9):.12e}, forward "
+          f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, peak memory {peak / 2**30:.2f} GiB; "
+          f"{n_leaves} leaf gradients all finite; kernel-forward loss rel diff "
+          f"{loss_rel:.3e} (bound {LOSS_RTOL})")
+
+    # the directional derivative on the 3 example rays against a central
+    # difference through the kernel; ode and limits are held fixed
+    loss3, grads3, _, _, _ = train_step(v0_d, st0_d, pwr_d)
+    rng = np.random.default_rng(2)
+
+    def direction(sub, physics):
+        """N(0, 1) times each element's magnitude; zero off the physics."""
+        if not physics:
+            return tree_map(torch.zeros_like, sub)
+        return tree_map(lambda t: t.abs() * torch.as_tensor(
+            rng.standard_normal(tuple(t.shape)), dtype=f64, device=dev), sub)
+
+    dirs = type(params_d)(*(direction(sub, name in ("species", "rf", "eq"))
+                            for name, sub in zip(params_d._fields, params_d)))
+    dd_ad = sum(float((g * d).sum()) for g, d in zip(grads3, tree_leaves(dirs)))
+    shifted = {sgn: kernel_loss(tree_map(lambda p, d: p + sgn * FD_EPS * d, params_d, dirs),
+                                v0_d, st0_d, pwr_d)
+               for sgn in (1.0, -1.0)}
+    (lp, rp), (lm, rm) = shifted[1.0], shifted[-1.0]
+    require(torch.equal(rp.npoints, rm.npoints) and torch.equal(rp.stop_flag, rm.stop_flag),
+            "npoints or flags differ between the +eps and -eps runs")
+    fd = (float(lp) - float(lm)) / (2 * FD_EPS)
+    fd_rel = abs(dd_ad - fd) / abs(fd)
+    require(fd_rel <= FD_RTOL, f"directional derivative {dd_ad!r} vs FD {fd!r}: {fd_rel:.3e}")
+    print(f"phase 9 gradient check, 3 rays x {cfg_d.nstep_max} steps: loss "
+          f"{float(loss3):.12e}, directional derivative {dd_ad:.10e} vs central "
+          f"difference {fd:.10e} (eps {FD_EPS} of each leaf), rel diff {fd_rel:.3e} "
+          f"(bound {FD_RTOL}); npoints at +-eps {rp.npoints.tolist()}")
+
+    total_s = time.perf_counter() - t_start
+    print(f"total wall time {total_s:.1f} s")
+    kernels = []
+    for name, launches, err, (t_kern, t_plain) in (
+            ("slab_rk4", main_launches, abs64, times[f64]),
+            ("slab_rk4_damped", damped_launches, db_max_abs, damped_times[f64])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "rays_tpu_torch/csrc/slab_rk4.cu",
+            "replaces": "rays_tpu/tracing/fused_slab.py:348",
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": t_kern,
+            "plain_ms": t_plain,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

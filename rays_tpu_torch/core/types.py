@@ -159,6 +159,11 @@ class Config:
             nv += 5
         return nv
 
+    @property
+    def damping_slot(self) -> int:
+        """Index of the total-absorption slot in v, or -1 if absent."""
+        return 7 if self.damping_model != "no_damp" else -1
+
 
 def tree_to(tree, device=None, dtype=None):
     """Move every floating-point tensor leaf of a NamedTuple tree to
@@ -170,6 +175,15 @@ def tree_to(tree, device=None, dtype=None):
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(tree_to(x, device, dtype) for x in tree))
     raise TypeError(f"tree_to: unsupported leaf {type(tree).__name__}")
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every leaf of a NamedTuple tree, with the matching
+    leaves of the trees in ``rest`` (of the same structure) as further
+    arguments."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree):

@@ -1,11 +1,16 @@
 // Host build of the slab RK4 kernel body (slab_rk4.cuh) for the CPU tests:
 // the same per-ray function as the CUDA kernel, called in a loop over rays.
 // It has the launchers' C interface (the stream argument is ignored), so the
-// wrapper in tracing/fused_slab.py drives both the same way.
+// wrapper in tracing/fused_slab.py drives both the same way.  Like the CUDA
+// library, one build holds one damping variant (RAYS_DAMPING).
 //
-//   g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC host_shim.cpp
+//   g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -DRAYS_DAMPING=2 host_shim.cpp
 
 #include "slab_rk4.cuh"
+
+#ifndef RAYS_DAMPING
+#define RAYS_DAMPING 0
+#endif
 
 namespace {
 
@@ -14,8 +19,8 @@ void run_all(const rays::SlabRun<T>* run, const T* v0, const int32_t* status0, i
              T* v_out, int32_t* stop_out, int32_t* npoints_out, T* end_res_out,
              T* max_res_out, T* traj, T* traj_res) {
   for (int64_t i = 0; i < B; ++i)
-    rays::trace_one<T, S>(*run, i, B, v0, status0, v_out, stop_out, npoints_out, end_res_out,
-                          max_res_out, traj, traj_res);
+    rays::trace_one<T, S, RAYS_DAMPING>(*run, i, B, v0, status0, v_out, stop_out,
+                                        npoints_out, end_res_out, max_res_out, traj, traj_res);
 }
 
 template <typename T>
@@ -42,6 +47,7 @@ int launch(const rays::SlabRun<T>* run, int nspecies, const T* v0, const int32_t
 
 extern "C" {
 
+int rays_slab_damping() { return RAYS_DAMPING; }
 int rays_slab_run_size_f64() { return (int)sizeof(rays::SlabRun<double>); }
 int rays_slab_run_size_f32() { return (int)sizeof(rays::SlabRun<float>); }
 

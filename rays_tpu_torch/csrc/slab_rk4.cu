@@ -10,17 +10,23 @@
 // Built by tracing/fused_slab.py with nvcc into a shared library with a
 // plain C interface and called through ctypes: each launcher takes the run
 // constants by pointer, passes them to the kernel by value, launches on the
-// caller's stream and returns cudaGetLastError().
+// caller's stream and returns cudaGetLastError().  One library holds one
+// damping variant (-DRAYS_DAMPING=0, 1 or 2, rays::DAMP_*) for S = 1..6 at
+// float32 and float64; the three libraries build side by side.
 
 #include <cuda_runtime.h>
 
 #include "slab_rk4.cuh"
 
+#ifndef RAYS_DAMPING
+#define RAYS_DAMPING 0
+#endif
+
 namespace {
 
 constexpr int kThreads = 128;
 
-template <typename T, int S>
+template <typename T, int S, int DAMP>
 __global__ void __launch_bounds__(kThreads)
 slab_rk4_kernel(const rays::SlabRun<T> run, int64_t B, const T* __restrict__ v0,
                 const int32_t* __restrict__ status0, T* __restrict__ v_out,
@@ -29,8 +35,8 @@ slab_rk4_kernel(const rays::SlabRun<T> run, int64_t B, const T* __restrict__ v0,
                 T* __restrict__ traj, T* __restrict__ traj_res) {
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (i >= B) return;
-  rays::trace_one<T, S>(run, i, B, v0, status0, v_out, stop_out, npoints_out, end_res_out,
-                        max_res_out, traj, traj_res);
+  rays::trace_one<T, S, DAMP>(run, i, B, v0, status0, v_out, stop_out, npoints_out,
+                              end_res_out, max_res_out, traj, traj_res);
 }
 
 template <typename T>
@@ -40,9 +46,9 @@ int launch(const rays::SlabRun<T>* run, int nspecies, const T* v0, const int32_t
   const dim3 grid((unsigned)((B + kThreads - 1) / kThreads));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RAYS_LAUNCH(S)                                                                  \
-  slab_rk4_kernel<T, S><<<grid, kThreads, 0, st>>>(*run, B, v0, status0, v_out, stop_out, \
-                                                   npoints_out, end_res_out, max_res_out, \
-                                                   traj, traj_res)
+  slab_rk4_kernel<T, S, RAYS_DAMPING><<<grid, kThreads, 0, st>>>(                    \
+      *run, B, v0, status0, v_out, stop_out, npoints_out, end_res_out, max_res_out, traj, \
+      traj_res)
   switch (nspecies) {
     case 1: RAYS_LAUNCH(1); break;
     case 2: RAYS_LAUNCH(2); break;
@@ -60,6 +66,7 @@ int launch(const rays::SlabRun<T>* run, int nspecies, const T* v0, const int32_t
 
 extern "C" {
 
+int rays_slab_damping() { return RAYS_DAMPING; }
 int rays_slab_run_size_f64() { return (int)sizeof(rays::SlabRun<double>); }
 int rays_slab_run_size_f32() { return (int)sizeof(rays::SlabRun<float>); }
 

@@ -1,22 +1,32 @@
-// Per-ray physics and RK4 trajectory of the slab ECH main path.
+// Per-ray physics and RK4 trajectory of the slab ECH main path, with or
+// without fundamental-ECH damping.
 //
 // Replaces rays_tpu/tracing/fused_slab.py::trace_batch_fused (the Pallas
-// kernel; its physics closures are make_slab_physics there).  Its plain
-// counterpart is the generic chain of the port:
+// kernel; its physics closures are make_slab_physics there), extended to
+// the damping slots the Pallas kernel lacked.  Its plain counterpart is the
+// generic chain of the port:
 // models/slab.py -> models/base.equilibrium -> wave/deriv_cold.py ->
-// tracing/rhs.py -> tracing/rk4.py -> tracing/trace.trace_batch, and every
-// formula below follows that chain's order of operations.
+// wave/damping.py -> tracing/rhs.py -> tracing/rk4.py ->
+// tracing/trace.trace_batch, and every formula below follows that chain's
+// order of operations.
 //
 // This header compiles both as CUDA (nvcc, slab_rk4.cu: one thread per ray)
 // and as plain C++ (g++, host_shim.cpp: a loop over rays), so the CPU tests
 // check exactly this arithmetic before it runs on the card.
 //
 // What bounds it on an H100: FP64 (or FP32) arithmetic, about 1.4k flops
-// per ray step and four equilibrium evaluations per step.  Nothing is read
-// from device memory between steps: the 7-slot state, the carried first RK
-// stage and the summaries stay in registers for the whole trajectory.  With
-// save_trajectory on, each accepted step writes 7 words of state and one
-// residual per ray, in a (step, slot, ray) layout that coalesces.
+// per ray step and four equilibrium evaluations per step; damping adds a
+// Dawson sum of 84 terms (168 exponentials) to each evaluation, kept as a
+// loop.  Nothing is read from device memory between steps: the NV-slot
+// state, the carried first RK stage and the summaries stay in registers for
+// the whole trajectory.  With save_trajectory on, each accepted step writes
+// NV words of state and one residual per ray, in a (step, slot, ray) layout
+// that coalesces.
+//
+// The damping variant is a template parameter DAMP, and it fixes the state
+// width (core/types.Config.nv): DAMP_NONE 7 slots (x, k, ray parameter),
+// DAMP_ECH 8 (+ total absorption), DAMP_ECH_MULTI 8 + S (+ absorption per
+// species).
 
 #pragma once
 
@@ -42,6 +52,7 @@ enum : int32_t {
   ST_INFINITE_VG = 10,
   ST_RAY_STALLED = 11,
   ST_DISPERSION_RESIDUAL = 20,
+  ST_TOTAL_ABSORPTION = 21,
   ST_SOUT_GT_SMAX = 30,
   ST_NSTEP_MAX = 31,
 };
@@ -52,8 +63,16 @@ enum : int32_t { BZ_ZERO = 0, BZ_CONSTANT = 1, BZ_TOROID = 2, BZ_LINEAR = 3, BZ_
 enum : int32_t { N_CONSTANT = 0, N_LINEAR = 1, N_GAUSSIAN = 2 };
 enum : int32_t { T_ZERO = 0, T_CONSTANT = 1, T_LINEAR = 2, T_LINEAR_2 = 3, T_PARABOLIC = 4 };
 
+// Damping variants (tracing/fused_slab.py::_variant)
+enum : int { DAMP_NONE = 0, DAMP_ECH = 1, DAMP_ECH_MULTI = 2 };
+
 constexpr int MAX_SPECIES = 6;  // NSPEC0 = 5 ions plus electrons
-constexpr int NV = 7;           // x, y, z, kx, ky, kz, ray parameter
+
+// state width: x, y, z, kx, ky, kz, ray parameter [, absorption [, per species]]
+template <int S, int DAMP>
+constexpr int state_width() {
+  return DAMP == DAMP_NONE ? 7 : (DAMP == DAMP_ECH ? 8 : 8 + S);
+}
 
 // Run constants, read once from Params on the host and passed by value.
 // The field order is mirrored by tracing/fused_slab.py::_run_struct.
@@ -65,6 +84,7 @@ struct SlabRun {
   T alpha_coef[MAX_SPECIES], gamma_coef[MAX_SPECIES], n0s[MAX_SPECIES];
   T t0s[MAX_SPECIES], alphat1[MAX_SPECIES], alphat2[MAX_SPECIES], t_min[MAX_SPECIES];
   T omgrf, omgrf_ref, k0, ds, s_max, dispersion_resid_limit;
+  T total_damping_limit, ms0, clight;  // damping: limit, electron mass, c
   int32_t by_model, bz_model, dens_model, time_param, nstep_max, save_trajectory;
   int32_t t_model[MAX_SPECIES];
 };
@@ -131,6 +151,19 @@ RAYS_HD void slab_fields(const SlabRun<T>& r, T x, T& by, T& dby, T& bz, T& dbz,
   }
 }
 
+// models/slab.py::_temperature, value only: T_s at x
+template <typename T>
+RAYS_HD T temperature(const SlabRun<T>& r, int s, T x) {
+  switch (r.t_model[s]) {
+    case T_CONSTANT: return r.t0s[s];
+    case T_LINEAR: return r.t0s[s] * (T(1) + x / r.lt_scale);
+    case T_LINEAR_2: return r.t0s[s] + r.dtdx * (x - r.x0);
+    case T_PARABOLIC:
+      return r.t0s[s] * parabolic((x - r.x0) / r.rmin, r.t_min[s], r.alphat1[s], r.alphat2[s]);
+    default: return T(0);
+  }
+}
+
 // models/slab.py::geom_err layered under models/base.py::_combine_err:
 // x, y, z bounds, then negative density, then negative temperature.
 template <typename T, int S>
@@ -142,26 +175,93 @@ RAYS_HD int32_t point_err(const SlabRun<T>& r, T x, T y, T z, const T* ns) {
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     neg_dens |= ns[s] < T(0);
-    T ts;
-    switch (r.t_model[s]) {
-      case T_CONSTANT: ts = r.t0s[s]; break;
-      case T_LINEAR: ts = r.t0s[s] * (T(1) + x / r.lt_scale); break;
-      case T_LINEAR_2: ts = r.t0s[s] + r.dtdx * (x - r.x0); break;
-      case T_PARABOLIC:
-        ts = r.t0s[s] * parabolic((x - r.x0) / r.rmin, r.t_min[s], r.alphat1[s], r.alphat2[s]);
-        break;
-      default: ts = T(0); break;
-    }
-    neg_temp |= ts < T(0);
+    neg_temp |= temperature(r, s, x) < T(0);
   }
   if (neg_dens) return ST_NEGATIVE_DENS;
   if (neg_temp) return ST_NEGATIVE_TEMP;
   return ST_OK;
 }
 
+// ops/zfun.py::dawsn: Rybicki's sum over the 84 odd n at h = 0.25, a loop
+// (not unrolled: 168 exponentials per call would bloat every RK stage)
+template <typename T>
+RAYS_HD T dawsn(T x) {
+  T acc = T(0);
+#pragma unroll 1
+  for (int j = 0; j < 84; ++j) {
+    const T n = T(2 * j + 1);
+    const T nh = n * T(0.25);
+    const T a = x - nh, b = x + nh;
+    acc += (r_exp(-(a * a)) - r_exp(-(b * b))) / n;
+  }
+  return acc / T(1.7724538509055159);  // math.sqrt(math.pi)
+}
+
+// wave/damping.py::damp_fund_ech for one ray: k_i of the weak fundamental
+// ECH absorption, from the equilibrium of eval_point (bunit = (0, buy,
+// buz), electron alpha, gamma, T_e and omega_ce) and the group velocity.
+// The no-damping masks and the clamps before them are the plain version's.
+template <typename T>
+RAYS_HD T damp_fund_ech(const SlabRun<T>& r, T kx, T ky, T kz, T buy, T buz, T alpha0,
+                        T gamma0, T te, T omgc0, T vgx, T vgy, T vgz) {
+  const T tiny = T(1e-30);
+  const T k0 = r.k0;
+  const T nx = kx / k0, ny = ky / k0, nz = kz / k0;
+  const T k3 = kx * T(0) + ky * buy + kz * buz;
+  const T k1x = kx - k3 * T(0), k1y = ky - k3 * buy, k1z = kz - k3 * buz;
+  const T k1sq = k1x * k1x + k1y * k1y + k1z * k1z;
+  const T r3 = k3 / k0;
+  const T r1s = k1sq / (k0 * k0);
+  const T r3s = r3 * r3;
+  const T rs = r1s + r3s;
+
+  const T b1 = gamma0;
+  const T betae = b1 * b1;
+  const T vth = r_sqrt(T(2) * r_clamp_min(te, tiny) / r.ms0);
+  const T vt = vth / r.clight;
+  const T safe_k3 = k3 == T(0) ? T(1) : k3;
+  const T xi = (r.omgrf + omgc0) / (safe_k3 * vth);
+  const T xi_z = r_clamp(xi, T(-6), T(6));
+  const T zr = T(-2) * dawsn(xi_z);
+  const T zi = T(1.7724538509055159) * r_exp(-(xi_z * xi_z)) * r_sign(safe_k3);
+  const T zmag2 = r_clamp_min(zr * zr + zi * zi, tiny);
+
+  const T p = alpha0;
+  const T q = p / T(2) / (T(1) - b1);
+  const T safe_r3s = r3s == T(0) ? T(1) : r3s;
+  const T safe_r3 = r3 == T(0) ? T(1) : r3;
+  const T omp = T(1) - p, omq = T(1) - q, om2q = T(1) - T(2) * q;
+  const T lam1 = omq * rs * r1s + omp * rs * r3s - omq * omp * (rs + r3s) - om2q * r1s +
+                 om2q * omp;
+  const T lam2 = -p / b1 * (rs * r1s - om2q * r1s) +
+                 p * p / T(4) / betae * r1s / safe_r3s * (rs + r3s - T(2) * om2q);
+  const T lam5 = p * (rs * r3s - omq * (rs + r3s) + om2q);
+  const T f_real = -(T(1) - b1) * r3 * vt *
+                   (lam1 + lam2 + r1s / T(2) / safe_r3 / betae * vt * xi_z * lam5);
+  const T d_warm_im = f_real * (-zi / zmag2);
+
+  // cold directional derivative of D along vg
+  const T a = omp - betae;
+  const T ab = a + omp * (T(1) - betae);
+  const T b = -(omp * a + omp * omp - betae) + ab * r3s;
+  const T ddnx2 = T(2) * a * r1s + b;
+  const T ddnz = T(2) * r3 * (ab * r1s + omp * (T(2) * (T(1) - betae) * r3s - T(2) * a));
+  const T dpx = T(2) * (nx - r3 * T(0)), dpy = T(2) * (ny - r3 * buy),
+          dpz = T(2) * (nz - r3 * buz);
+  const T ddx = ddnx2 * dpx + ddnz * T(0), ddy = ddnx2 * dpy + ddnz * buy,
+          ddz = ddnx2 * dpz + ddnz * buz;
+  const T vg_mag = r_clamp_min(r_sqrt(vgx * vgx + vgy * vgy + vgz * vgz), tiny);
+  const T denom = ddx * (vgx / vg_mag) + ddy * (vgy / vg_mag) + ddz * (vgz / vg_mag);
+  const T safe_denom = denom == T(0) ? T(1) : denom;
+  const T ki0 = k0 * (-d_warm_im / safe_denom);
+
+  const bool live = k3 != T(0) && r_abs(xi) <= T(5) && te > T(0) && denom != T(0);
+  return live ? ki0 : T(0);
+}
+
 // One equilibrium evaluation at v, then eqn_ray (tracing/rhs.py) and, with
 // CHECK, check_save from the same evaluation (rhs.eqn_ray_and_check).
-template <typename T, int S, bool CHECK>
+template <typename T, int S, int DAMP, bool CHECK>
 RAYS_HD void eval_point(const SlabRun<T>& r, const T* v, T* f, int32_t& rhs_status,
                         T& resid, int32_t& check_status) {
   const T tiny = T(1e-30);  // constants.SAFE_TINY
@@ -301,6 +401,22 @@ RAYS_HD void eval_point(const SlabRun<T>& r, const T* v, T* f, int32_t& rhs_stat
   }
   f[4] = T(0);
   f[5] = T(0);
+  if constexpr (DAMP != DAMP_NONE) {
+    // damping slots (rhs._eqn_ray_from_eq, wave/damping.py)
+    const T safe_w = dddw == T(0) ? T(1) : dddw;
+    const T omgc0 = r.gamma_coef[0] * bmag * r.omgrf_ref;
+    const T ki = damp_fund_ech(r, kx, ky, kz, buy, buz, alpha[0], gamma[0],
+                               temperature(r, 0, x), omgc0, -dddk_x / safe_w,
+                               -dddk_y / safe_w, -dddk_z / safe_w);
+    const T one_minus_p = T(1) - v[7];
+    f[7] = f[6] * T(2) * ki * one_minus_p;
+    if constexpr (DAMP == DAMP_ECH_MULTI) {
+      // only the electrons absorb: ksi = (ki, 0, ..., 0)
+      f[8] = f[6] * T(2) * ki * one_minus_p;
+#pragma unroll
+      for (int s = 1; s < S; ++s) f[8 + s] = f[6] * T(2) * T(0) * one_minus_p;
+    }
+  }
   int32_t st = ST_OK;
   if (!r.time_param && dk_mag == T(0)) st = ST_RAY_STALLED;
   if (dddw == T(0)) st = ST_INFINITE_VG;
@@ -334,21 +450,26 @@ RAYS_HD void eval_point(const SlabRun<T>& r, const T* v, T* f, int32_t& rhs_stat
     const T en13 = r_abs(m13);
     const T denom = en33 * (en11 * en22) + en33 * (en12 * en12) + en13 * (en22 * en13);
     resid = r_abs(det) / denom;
-    int32_t cst = resid > r.dispersion_resid_limit ? ST_DISPERSION_RESIDUAL : ST_OK;
+    int32_t cst = ST_OK;
+    if constexpr (DAMP != DAMP_NONE) {
+      if (v[7] > r.total_damping_limit) cst = ST_TOTAL_ABSORPTION;
+    }
+    if (resid > r.dispersion_resid_limit) cst = ST_DISPERSION_RESIDUAL;
     if (err != ST_OK) cst = err;
     check_status = cst;
   }
 }
 
 // The whole trajectory of ray i (tracing/trace.trace_batch for one ray).
-// v0: (B, 7) row-major.  Outputs: v_out (B, 7), stop/npoints/end/max (B,);
-// with save_trajectory, traj (nstep_max+1, 7, B) and traj_res
+// v0: (B, NV) row-major.  Outputs: v_out (B, NV), stop/npoints/end/max
+// (B,); with save_trajectory, traj (nstep_max+1, NV, B) and traj_res
 // (nstep_max+1, B), which the caller has zeroed.
-template <typename T, int S>
+template <typename T, int S, int DAMP>
 RAYS_HD void trace_one(const SlabRun<T>& r, int64_t i, int64_t B, const T* v0,
                        const int32_t* status0, T* v_out, int32_t* stop_out,
                        int32_t* npoints_out, T* end_res_out, T* max_res_out, T* traj,
                        T* traj_res) {
+  constexpr int NV = state_width<S, DAMP>();
   T v[NV], f1[NV];
 #pragma unroll
   for (int j = 0; j < NV; ++j) v[j] = v0[i * NV + j];
@@ -356,7 +477,7 @@ RAYS_HD void trace_one(const SlabRun<T>& r, int64_t i, int64_t B, const T* v0,
   // initial check; the same evaluation seeds the first step's k1
   int32_t st1, chk;
   T resid;
-  eval_point<T, S, true>(r, v, f1, st1, resid, chk);
+  eval_point<T, S, DAMP, true>(r, v, f1, st1, resid, chk);
   int32_t status = status0[i] != 0 ? status0[i] : chk;
   if (r.save_trajectory) {
 #pragma unroll
@@ -377,13 +498,13 @@ RAYS_HD void trace_one(const SlabRun<T>& r, int64_t i, int64_t B, const T* v0,
     T unused_res;
 #pragma unroll
     for (int j = 0; j < NV; ++j) vt[j] = v[j] + ds * f1[j] / T(2);
-    eval_point<T, S, false>(r, vt, f2, st2, unused_res, unused_st);
+    eval_point<T, S, DAMP, false>(r, vt, f2, st2, unused_res, unused_st);
 #pragma unroll
     for (int j = 0; j < NV; ++j) vt[j] = v[j] + ds * f2[j] / T(2);
-    eval_point<T, S, false>(r, vt, f3, st3, unused_res, unused_st);
+    eval_point<T, S, DAMP, false>(r, vt, f3, st3, unused_res, unused_st);
 #pragma unroll
     for (int j = 0; j < NV; ++j) vt[j] = v[j] + ds * f3[j];
-    eval_point<T, S, false>(r, vt, f4, st4, unused_res, unused_st);
+    eval_point<T, S, DAMP, false>(r, vt, f4, st4, unused_res, unused_st);
     const int32_t solver_st = st1 != 0 ? st1 : (st2 != 0 ? st2 : (st3 != 0 ? st3 : st4));
     if (solver_st != 0) {
       status = solver_st;
@@ -396,7 +517,7 @@ RAYS_HD void trace_one(const SlabRun<T>& r, int64_t i, int64_t B, const T* v0,
     // endpoint: check_save, and the next step's first stage
     T fn[NV];
     int32_t stn;
-    eval_point<T, S, true>(r, vt, fn, stn, resid, chk);
+    eval_point<T, S, DAMP, true>(r, vt, fn, stn, resid, chk);
     if (chk != 0) {
       status = chk;
       break;

@@ -1,23 +1,30 @@
 """The slab RK4 trajectory as one CUDA kernel: the GPU forward path of the
-main slice.
+slab slices, undamped and with fundamental-ECH damping.
 
 Replaces ``rays_tpu/tracing/fused_slab.py::trace_batch_fused``, the JAX
-package's only Pallas kernel.  The kernel (``csrc/slab_rk4.cu`` with the
-per-ray physics in ``csrc/slab_rk4.cuh``) runs one thread per ray, keeps
-the 7-slot state in registers for all ``nstep_max`` steps, carries the
-endpoint evaluation into the next step's first RK stage (4 equilibrium
+package's only Pallas kernel, and extends it to the damping slots the
+Pallas kernel lacked.  The kernel (``csrc/slab_rk4.cu`` with the per-ray
+physics in ``csrc/slab_rk4.cuh``) runs one thread per ray, keeps the
+``cfg.nv``-slot state in registers for all ``nstep_max`` steps, carries
+the endpoint evaluation into the next step's first RK stage (4 equilibrium
 evaluations per step, the order of arithmetic of ``trace_batch``), and, on
 top of what the Pallas kernel did, writes the trajectory when
 ``cfg.save_trajectory`` is on.  What bounds it on the card is FP64/FP32
-arithmetic (about 1.4k flops per ray step); it reads nothing from device
-memory between steps.
+arithmetic (about 1.4k flops per ray step, plus an 84-term Dawson sum per
+evaluation with damping); it reads nothing from device memory between
+steps.
+
+The damping variant (none, damp_fund_ECH, damp_fund_ECH with per-species
+slots) fixes the state width at compile time, so each variant is its own
+library (``-DRAYS_DAMPING``); the three build side by side at first use.
 
 ``trace_batch_fused`` is the wrapper: on CUDA tensors it builds the kernel
-library at first use (nvcc, see ``native.py``), launches it on the current
-stream and counts the launch in ``LAUNCHES``; on CPU tensors it runs the
-plain twin.  A failed build or launch raises; nothing falls back.
-``trace_batch_fused_reference`` is the plain twin: the port's generic
-``trace_batch`` on the same inputs, with the same outputs.
+libraries at first use (nvcc, see ``native.py``), launches the one of the
+config's variant on the current stream and counts the launch in
+``LAUNCHES``; on CPU tensors it runs the plain twin.  A failed build or
+launch raises; nothing falls back.  ``trace_batch_fused_reference`` is the
+plain twin: the port's generic ``trace_batch`` on the same inputs, with
+the same outputs.
 """
 
 from __future__ import annotations
@@ -29,14 +36,15 @@ import shutil
 
 import torch
 
-from rays_tpu_torch import native
+from rays_tpu_torch import constants, native
 from rays_tpu_torch.tracing.trace import RayResults, trace_batch
 
 # launches of the CUDA kernel in this process (not of the plain twin)
 LAUNCHES = 0
 
 MAX_SPECIES = 6
-NV = 7
+# damping variants, numbered as rays::DAMP_* in csrc/slab_rk4.cuh
+VARIANTS = (0, 1, 2)
 
 # model numbering shared with csrc/slab_rk4.cuh
 _BY_MODELS = {"zero": 0, "constant": 1, "toroid": 2, "linear_shear": 3}
@@ -50,10 +58,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 def supported(cfg) -> bool:
     """Whether the kernel covers this run: the analytic slab with the
-    profile models of the Pallas kernel, cold dispersion without damping
-    or gradient diagnostics, fixed-step RK4, at most 6 species.  Unlike the
-    Pallas kernel it also writes trajectories (``save_trajectory``)."""
-    if cfg.equilib_model != "slab" or cfg.damping_model != "no_damp":
+    profile models of the Pallas kernel, cold dispersion without gradient
+    diagnostics, fixed-step RK4, at most 6 species.  Unlike the Pallas
+    kernel it also writes trajectories (``save_trajectory``) and runs
+    ``damp_fund_ECH`` damping, with or without the per-species slots."""
+    if cfg.equilib_model != "slab":
+        return False
+    if cfg.damping_model not in ("no_damp", "damp_fund_ECH"):
         return False
     if cfg.integrate_eq_gradients or cfg.ode_solver_name != "RK4_ODE":
         return False
@@ -74,7 +85,8 @@ _SCALARS = ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax", "rmaj", "rmin", "x0"
             "by0", "bz0", "lby_shear_scale", "lbz_scale", "dbzdx", "ln_scale",
             "alphan1", "lt_scale", "dtdx")
 _SPECIES = ("alpha_coef", "gamma_coef", "n0s", "t0s", "alphat1", "alphat2", "t_min")
-_RUN = ("omgrf", "omgrf_ref", "k0", "ds", "s_max", "dispersion_resid_limit")
+_RUN = ("omgrf", "omgrf_ref", "k0", "ds", "s_max", "dispersion_resid_limit",
+        "total_damping_limit", "ms0", "clight")
 _INTS = ("by_model", "bz_model", "dens_model", "time_param", "nstep_max",
          "save_trajectory")
 
@@ -94,21 +106,35 @@ _RUN_STRUCTS = {torch.float64: _struct_type(ctypes.c_double),
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 
+def _variant(cfg) -> int:
+    """The kernel library of this config's damping (rays::DAMP_*)."""
+    if cfg.damping_model == "no_damp":
+        return 0
+    return 2 if cfg.multi_spec_damping else 1
+
+
 def _run_struct(cfg, params, dtype):
-    """Read the run constants from Params once (``.item()``)."""
+    """Read the run constants from Params with one device-to-host copy."""
+    sp, eq, rf = params.species, params.eq, params.rf
+    values = {**{n: getattr(eq, n) for n in _SCALARS},
+              "alpha_coef": sp.alpha_coef, "gamma_coef": sp.gamma_coef, "n0s": sp.n0s,
+              "t0s": sp.t0s, "alphat1": eq.alphat1, "alphat2": eq.alphat2,
+              "t_min": eq.t_min, "omgrf": rf.omgrf, "omgrf_ref": rf.omgrf_ref, "k0": rf.k0,
+              "ds": params.ode.ds, "s_max": params.ode.s_max,
+              "dispersion_resid_limit": params.limits.dispersion_resid_limit,
+              "total_damping_limit": params.limits.total_damping_limit, "ms0": sp.ms[0]}
+    tensors = [(n, t.detach().reshape(-1)) for n, t in values.items()]
+    flat = torch.cat([t for _, t in tensors]).cpu().tolist()
+
     run = _RUN_STRUCTS[dtype]()
-    for n in _SCALARS:
-        setattr(run, n, getattr(params.eq, n).item())
-    per_species = {**{n: getattr(params.species, n) for n in _SPECIES[:4]},
-                   **{n: getattr(params.eq, n) for n in _SPECIES[4:]}}
-    for n, t in per_species.items():
-        getattr(run, n)[:cfg.ns] = t.tolist()
-    run.omgrf = params.rf.omgrf.item()
-    run.omgrf_ref = params.rf.omgrf_ref.item()
-    run.k0 = params.rf.k0.item()
-    run.ds = params.ode.ds.item()
-    run.s_max = params.ode.s_max.item()
-    run.dispersion_resid_limit = params.limits.dispersion_resid_limit.item()
+    i = 0
+    for n, t in tensors:
+        if n in _SPECIES:
+            getattr(run, n)[:t.numel()] = flat[i:i + t.numel()]
+        else:
+            setattr(run, n, flat[i])
+        i += t.numel()
+    run.clight = constants.CLIGHT
     st = cfg.eq_static
     run.by_model = _BY_MODELS[st.by_prof_model]
     run.bz_model = _BZ_MODELS[st.bz_prof_model]
@@ -124,6 +150,7 @@ def bind(lib):
     """Declare the C interface of a slab RK4 library (the CUDA launchers or
     the host build of the same body) and check the struct layout."""
     vp = ctypes.c_void_p
+    lib.rays_slab_damping.argtypes, lib.rays_slab_damping.restype = [], ctypes.c_int
     for dtype, suffix in _SUFFIX.items():
         size = getattr(lib, f"rays_slab_run_size_{suffix}")
         size.argtypes, size.restype = [], ctypes.c_int
@@ -149,23 +176,28 @@ def _nvcc():
 
 
 @functools.lru_cache(maxsize=None)
-def load_library():
-    """Build (at first use) and load the CUDA kernel library.  Returns
-    (ctypes library, compiler output with the -Xptxas -v report)."""
+def load_libraries():
+    """Build (at first use, the three variants side by side) and load the
+    CUDA kernel libraries.  Returns {variant: (ctypes library, compiler
+    output with the -Xptxas -v report)}."""
     nvcc = _nvcc()
     files = [native.CSRC / "slab_rk4.cu", native.CSRC / "slab_rk4.cuh"]
-    path, log = native.build(
-        "slab_rk4", files,
-        lambda out: [nvcc, *NVCC_FLAGS, "-o", str(out), "slab_rk4.cu"])
-    return bind(ctypes.CDLL(str(path))), log
+
+    def spec(variant):
+        return (f"slab_rk4_d{variant}", files,
+                lambda out: [nvcc, *NVCC_FLAGS, f"-DRAYS_DAMPING={variant}", "-o",
+                             str(out), "slab_rk4.cu"])
+
+    built = native.build_all([spec(v) for v in VARIANTS])
+    return {v: (bind(ctypes.CDLL(str(path))), log) for v, (path, log) in zip(VARIANTS, built)}
 
 
 def _check_inputs(cfg, v0, status0):
     if not supported(cfg):
         raise ValueError("config not supported by the slab RK4 kernel "
                          "(fused_slab.supported)")
-    if v0.dim() != 2 or v0.shape[1] != NV:
-        raise ValueError(f"v0 must be (B, {NV}), got {tuple(v0.shape)}")
+    if v0.dim() != 2 or v0.shape[1] != cfg.nv:
+        raise ValueError(f"v0 must be (B, {cfg.nv}), got {tuple(v0.shape)}")
     if v0.shape[0] == 0:
         raise ValueError("empty ray batch")
     if v0.dtype not in _RUN_STRUCTS:
@@ -182,18 +214,21 @@ def run_library(lib, cfg, params, v0, status0, pwr_wt, stream=None) -> RayResult
     """Call a bound slab RK4 library on tensors that its code can address
     (CUDA tensors for the kernel, CPU tensors for the host build)."""
     _check_inputs(cfg, v0, status0)
-    B, dt, dev = v0.shape[0], v0.dtype, v0.device
+    if lib.rays_slab_damping() != _variant(cfg):
+        raise ValueError(f"the library holds damping variant {lib.rays_slab_damping()}, "
+                         f"the config needs {_variant(cfg)}")
+    B, nv, dt, dev = v0.shape[0], v0.shape[1], v0.dtype, v0.device
     run = _run_struct(cfg, params, dt)
 
     def empty(dtype):
         return torch.empty((B,), dtype=dtype, device=dev)
 
-    v_out = torch.empty((B, NV), dtype=dt, device=dev)
+    v_out = torch.empty((B, nv), dtype=dt, device=dev)
     stop, npoints = empty(torch.int32), empty(torch.int32)
     end_res, max_res = empty(dt), empty(dt)
     if cfg.save_trajectory:
         # zero rows past each ray's stop are the kernel's by construction
-        traj = torch.zeros((cfg.nstep_max + 1, NV, B), dtype=dt, device=dev)
+        traj = torch.zeros((cfg.nstep_max + 1, nv, B), dtype=dt, device=dev)
         traj_res = torch.zeros((cfg.nstep_max + 1, B), dtype=dt, device=dev)
         traj_ptrs = (traj.data_ptr(), traj_res.data_ptr())
     else:
@@ -209,7 +244,7 @@ def run_library(lib, cfg, params, v0, status0, pwr_wt, stream=None) -> RayResult
     if cfg.save_trajectory:
         ray_vec, residual = traj.permute(2, 0, 1), traj_res.permute(1, 0)
     else:
-        ray_vec = torch.zeros((B, 1, NV), dtype=dt, device=dev)
+        ray_vec = torch.zeros((B, 1, nv), dtype=dt, device=dev)
         residual = torch.zeros((B, 1), dtype=dt, device=dev)
     return RayResults(
         ray_vec=ray_vec, residual=residual, npoints=npoints, stop_flag=stop,
@@ -220,7 +255,7 @@ def run_library(lib, cfg, params, v0, status0, pwr_wt, stream=None) -> RayResult
 def trace_batch_fused(cfg, params, v0, status0, pwr_wt) -> RayResults:
     """The kernel wrapper.  CUDA tensors: launch the kernel on the current
     stream (asynchronously; synchronize before timing).  CPU tensors: the
-    plain twin.  Trajectories come back as (B, nstep_max+1, 7) and
+    plain twin.  Trajectories come back as (B, nstep_max+1, nv) and
     (B, nstep_max+1) views of the kernel's (step, slot, ray) buffers."""
     global LAUNCHES
     if v0.device.type == "cpu":
@@ -228,7 +263,7 @@ def trace_batch_fused(cfg, params, v0, status0, pwr_wt) -> RayResults:
     if v0.device.type != "cuda":
         raise ValueError(f"trace_batch_fused: unsupported device {v0.device}")
     _check_inputs(cfg, v0, status0)
-    lib, _ = load_library()
+    lib, _ = load_libraries()[_variant(cfg)]
     stream = torch.cuda.current_stream(v0.device).cuda_stream
     with torch.cuda.device(v0.device):
         out = run_library(lib, cfg, params, v0, status0, pwr_wt, stream)

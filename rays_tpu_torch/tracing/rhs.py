@@ -3,13 +3,14 @@
 
 State layout in the ODE vector v (B, nv) (ode_m.f90:158-175):
 
-    v[:, 0:3] = x,  v[:, 3:6] = k,  v[:, 6] = integrated ray parameter
+    v[:, 0:3] = x,  v[:, 3:6] = k,  v[:, 6] = integrated ray parameter,
+    [v[:, 7] = total absorption]  [v[:, 8:8+S] = per-species absorption]
 
 The equilibrium is evaluated once per call; the statuses are the
 first-triggered StopCode in the reference's order (equilibrium error ->
-infinite Vg -> ray stalled, eqn_ray.f90:89-169).  Damping, the
-equilibrium-gradient diagnostics and the autodiff derivative path are
-later slices (ROADMAP A11, A14) and raise here.
+infinite Vg -> ray stalled, eqn_ray.f90:89-169).  The
+equilibrium-gradient diagnostics and the autodiff derivative path are a
+later slice (ROADMAP A14) and raise here.
 """
 
 from __future__ import annotations
@@ -19,15 +20,13 @@ import torch
 from rays_tpu_torch import constants
 from rays_tpu_torch.models import base
 from rays_tpu_torch.tracing.stop import StopCode
+from rays_tpu_torch.wave import damping as damping_mod
 from rays_tpu_torch.wave import deriv_cold as deriv_cold_mod
 from rays_tpu_torch.wave import dispersion
 
 
 def check_ported(cfg):
     """Raise for the RHS options that later slices port."""
-    if cfg.damping_model != "no_damp":
-        raise NotImplementedError(
-            f"damping_model {cfg.damping_model!r} is not ported yet (ROADMAP A11)")
     if cfg.integrate_eq_gradients:
         raise NotImplementedError(
             "integrate_eq_gradients is not ported yet (ROADMAP A14)")
@@ -73,7 +72,16 @@ def _eqn_ray_from_eq(cfg, params, s, v, eq):
         dkds = dddx / safe_dddw
         dsd_ray_param = torch.sqrt((dxds**2).sum(-1))   # |vg|
 
-    dvds = torch.cat([dxds, dkds, dsd_ray_param[:, None]], dim=1)
+    parts = [dxds, dkds, dsd_ray_param[:, None]]
+    if cfg.damping_model != "no_damp":
+        vg = -dddk / safe_dddw
+        ksi, ki = damping_mod.damping(cfg, params, eq, v[:, 0:6], vg)
+        # dP/ds = dsd 2 ki (1 - P_total), P_total = v[:, 7] (eqn_ray.f90:196-213)
+        one_minus_p = 1.0 - v[:, 7]
+        parts.append((dsd_ray_param * 2.0 * ki * one_minus_p)[:, None])
+        if cfg.multi_spec_damping:
+            parts.append(dsd_ray_param[:, None] * 2.0 * ksi * one_minus_p[:, None])
+    dvds = torch.cat(parts, dim=1)
 
     status = torch.zeros_like(eq.err)
     if cfg.ray_param == "arcl":
@@ -101,6 +109,10 @@ def _check_from_point(cfg, params, alpha, gamma, bunit, err, v):
     resid = dispersion.residual(alpha, gamma, k1 / k0, k3 / k0)
 
     status = torch.zeros_like(err)
+    if cfg.damping_model != "no_damp":
+        status = torch.where(v[:, 7] > params.limits.total_damping_limit,
+                             torch.full_like(status, int(StopCode.TOTAL_ABSORPTION)),
+                             status)
     status = torch.where(resid > params.limits.dispersion_resid_limit,
                          torch.full_like(status, int(StopCode.DISPERSION_RESIDUAL)),
                          status)

@@ -10,16 +10,21 @@ Stop-check order per outer step matches the reference tracing loop
 A step rejected by (3) or (4) leaves the ray state unchanged and is not
 recorded.
 
-``trace_batch`` is plain PyTorch and runs on any device.  ``trace_rays``
-is the top-level dispatch: the plain tracer for CPU tensors, the CUDA
-kernel (tracing/fused_slab.py) for CUDA tensors.
+``trace_batch`` is plain PyTorch and runs on any device; autograd
+differentiates it with respect to every floating Params leaf, v0 and
+pwr_wt (the adjoint, ROADMAP A9), with each step rematerialized on the
+backward pass when ``cfg.remat_steps`` is on.  ``trace_rays`` is the
+top-level dispatch: the plain tracer for CPU tensors and for gradients,
+the CUDA kernel (tracing/fused_slab.py) for CUDA tensors.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from rays_tpu_torch.core.types import tree_leaves
 from rays_tpu_torch.tracing import rhs as rhs_mod
@@ -42,30 +47,34 @@ class RayResults(NamedTuple):
     end_ray_vec: Any        # (B, nv)
 
 
+def _needs_grad(params, v0):
+    return torch.is_grad_enabled() and (
+        v0.requires_grad or any(leaf.requires_grad for leaf in tree_leaves(params)))
+
+
 def trace_rays(cfg, params, v0, status0, pwr_wt) -> RayResults:
     """Top-level tracer dispatch (reference trace_rays,
     ray_tracing.f90:1).
 
     CPU tensors run the plain ``trace_batch``.  CUDA tensors run the slab
-    RK4 CUDA kernel when ``fused_slab.supported(cfg)``; any other config
-    on CUDA raises, never falling back to the plain tracer.  Gradients
-    through the tracer are the adjoint slice (ROADMAP A9): a Params leaf
-    that requires grad is refused."""
-    if any(leaf.requires_grad for leaf in tree_leaves(params)):
-        raise NotImplementedError(
-            "gradients through trace_rays are not ported yet (ROADMAP A9)")
-    if v0.device.type == "cpu":
+    RK4 CUDA kernel when ``fused_slab.supported(cfg)``, and raise for any
+    other config, never falling back to the plain tracer.  The one
+    exception is the adjoint: when grad mode is on and a Params leaf or v0
+    requires grad, ``trace_batch`` runs on the tensors' own device, since
+    the kernel has no backward (the JAX package's adjoint, too, is
+    reverse mode through its plain scan)."""
+    if v0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"trace_rays: unsupported device {v0.device}")
+    if v0.device.type == "cpu" or _needs_grad(params, v0):
         return trace_batch(cfg, params, v0, status0, pwr_wt)
-    if v0.device.type == "cuda":
-        from rays_tpu_torch.tracing import fused_slab
+    from rays_tpu_torch.tracing import fused_slab
 
-        if not fused_slab.supported(cfg):
-            raise NotImplementedError(
-                "on CUDA only the slab RK4 cold no-damping config runs "
-                "(tracing/fused_slab.supported); this config is not ported "
-                "to the GPU yet")
-        return fused_slab.trace_batch_fused(cfg, params, v0, status0, pwr_wt)
-    raise ValueError(f"trace_rays: unsupported device {v0.device}")
+    if not fused_slab.supported(cfg):
+        raise NotImplementedError(
+            "on CUDA only the configs of tracing/fused_slab.supported run "
+            "without gradients (the analytic slab, cold RK4, with or without "
+            "damp_fund_ECH); this config is not ported to the GPU yet")
+    return fused_slab.trace_batch_fused(cfg, params, v0, status0, pwr_wt)
 
 
 def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
@@ -91,17 +100,12 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
     f1, st1, _, chk0 = rhs_mod.eqn_ray_and_check(cfg, params, zero_s, v0)
     status = torch.where(status0 != 0, status0.to(torch.int32), chk0)
 
-    v = v0
     nstep = torch.zeros((B,), dtype=torch.int32, device=dev)
     end_res = torch.zeros((B,), dtype=dt, device=dev)
     max_res = torch.zeros((B,), dtype=dt, device=dev)
-    if cfg.save_trajectory:
-        ray_vec = torch.zeros((B, cfg.nstep_max + 1, nv), dtype=dt, device=dev)
-        residual = torch.zeros((B, cfg.nstep_max + 1), dtype=dt, device=dev)
-        ray_vec[:, 0] = v0
     sout_gt = torch.full_like(status, int(StopCode.SOUT_GT_SMAX))
 
-    for k in range(cfg.nstep_max):
+    def step(k, v, f1, st1, status, nstep, end_res, max_res):
         s = k * ds
         sout = (k + 1) * ds
 
@@ -126,14 +130,37 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
         nstep = nstep + ok.to(torch.int32)
         end_res = torch.where(ok, resid, end_res)
         max_res = torch.where(ok, torch.maximum(max_res, resid), max_res)
+        row = torch.where(okc, v, 0.0)
+        res_row = torch.where(ok, resid, 0.0)
+        return v, f1, st1, status, nstep, end_res, max_res, row, res_row
+
+    # the analog of jax.checkpoint(body) (JAX trace.py:233-238): the
+    # backward pass keeps each step's inputs and recomputes its insides
+    remat = cfg.remat_steps and _needs_grad(params, v0)
+    carry = (v0, f1, st1, status, nstep, end_res, max_res)
+    # trajectory rows are stacked once at the end: writing them into a
+    # preallocated buffer would chain one whole-buffer copy per step into
+    # the backward pass
+    rows, res_rows = [v0], [torch.zeros((B,), dtype=dt, device=dev)]
+    for k in range(cfg.nstep_max):
+        if remat:
+            out = torch.utils.checkpoint.checkpoint(
+                functools.partial(step, k), *carry, use_reentrant=False)
+        else:
+            out = step(k, *carry)
+        carry = out[:7]
         if cfg.save_trajectory:
-            ray_vec[:, k + 1] = torch.where(okc, v, 0.0)
-            residual[:, k + 1] = torch.where(ok, resid, 0.0)
+            rows.append(out[7])
+            res_rows.append(out[8])
+    v, _, _, status, nstep, end_res, max_res = carry
 
     # still-live rays exhausted the step budget (ray_tracing.f90:150-172)
     status = torch.where(status == 0, torch.full_like(status, int(StopCode.NSTEP_MAX)),
                          status)
-    if not cfg.save_trajectory:
+    if cfg.save_trajectory:
+        ray_vec = torch.stack(rows, dim=1)
+        residual = torch.stack(res_rows, dim=1)
+    else:
         ray_vec = torch.zeros((B, 1, nv), dtype=dt, device=dev)
         residual = torch.zeros((B, 1), dtype=dt, device=dev)
 

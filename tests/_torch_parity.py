@@ -87,13 +87,19 @@ def assert_scaled_close(got, ref, rtol, axis, what=""):
             f"{what} {name}: max scaled error {err.max():.3e} > {rtol}")
 
 
-def host_kernel_library():
-    """g++ build of csrc/slab_rk4.cuh through csrc/host_shim.cpp (into the
-    gitignored build/), bound like the CUDA library."""
+def host_kernel_libraries():
+    """g++ builds of csrc/slab_rk4.cuh through csrc/host_shim.cpp (into the
+    gitignored build/), one per damping variant, bound like the CUDA
+    libraries: {variant: library}."""
     gxx = shutil.which("g++")
-    path, _ = native.build(
-        "slab_rk4_host",
-        [native.CSRC / "host_shim.cpp", native.CSRC / "slab_rk4.cuh"],
-        lambda out: [gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
-                     "-fPIC", "-o", str(out), "host_shim.cpp"])
-    return fused_slab.bind(ctypes.CDLL(str(path)))
+    files = [native.CSRC / "host_shim.cpp", native.CSRC / "slab_rk4.cuh"]
+
+    def spec(variant):
+        return (f"slab_rk4_host_d{variant}", files,
+                lambda out: [gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
+                             "-fPIC", f"-DRAYS_DAMPING={variant}", "-o", str(out),
+                             "host_shim.cpp"])
+
+    built = native.build_all([spec(v) for v in fused_slab.VARIANTS])
+    return {v: fused_slab.bind(ctypes.CDLL(str(path)))
+            for v, (path, _) in zip(fused_slab.VARIANTS, built)}

@@ -18,7 +18,8 @@ import _torch_parity as tp
 import rays_tpu  # noqa: F401  (x64 on)
 from rays_tpu import examples as jex
 from rays_tpu.tracing import fused_slab as jfused
-from rays_tpu_torch.core.types import Config
+from rays_tpu_torch import constants
+from rays_tpu_torch.core.types import Config, tree_to
 from rays_tpu_torch.tracing import fused_slab as tfused
 from rays_tpu_torch.tracing import trace as ttrace
 
@@ -68,7 +69,8 @@ def test_cpu_wrapper_runs_plain_twin():
 @pytest.mark.parametrize("save", [False, True])
 def test_supported_matches_jax(save):
     """On the configs of tests/test_fused.py the gate agrees with the JAX
-    package's; trajectories are the port's extension (JAX refuses them)."""
+    package's; trajectories and damping are the port's extensions (JAX
+    refuses them), with or without the per-species slots."""
     cfg, params, *_ = tp.jax_case(save_trajectory=save)
     pcfg, _ = tp.to_port(cfg, params)
     assert tfused.supported(pcfg)
@@ -76,7 +78,9 @@ def test_supported_matches_jax(save):
 
     damped, dparams, *_ = tp.jax_case(jex.SLAB_ECH_DAMPED, save_trajectory=save)
     assert not jfused.supported(damped)
-    assert not tfused.supported(tp.to_port(damped, dparams)[0])
+    port_damped = tp.to_port(damped, dparams)[0]
+    assert tfused.supported(port_damped)
+    assert tfused.supported(dataclasses.replace(port_damped, multi_spec_damping=False))
 
     sol, *_ = jex.setup_example(jex.SOLOVEV_ECH_90GHZ)
     sol = dataclasses.replace(sol, save_trajectory=save)
@@ -118,3 +122,33 @@ def test_wrapper_checks_inputs():
     # a device that is neither the CPU nor CUDA is refused, never run
     with pytest.raises(ValueError, match="unsupported device"):
         tfused.trace_batch_fused(pcfg, pp, tv0.to("meta"), tst.to("meta"), tpw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("text", [jex.SLAB_ECH_90GHZ, jex.SLAB_ECH_DAMPED],
+                         ids=["undamped", "damped"])
+def test_run_struct_fields(text, dtype):
+    """The run constants, read with one host copy, hold in every field what
+    a read of each Params leaf on its own gives."""
+    cfg, params, *_ = tp.jax_case(text)
+    pcfg, pp = tp.to_port(cfg, params)
+    pp = tree_to(pp, dtype=dtype)
+    run = tfused._run_struct(pcfg, pp, dtype)
+    sp, eq, ns = pp.species, pp.eq, pcfg.ns
+    for n in tfused._SCALARS:
+        assert getattr(run, n) == getattr(eq, n).item(), n
+    per_species = dict(alpha_coef=sp.alpha_coef, gamma_coef=sp.gamma_coef, n0s=sp.n0s,
+                       t0s=sp.t0s, alphat1=eq.alphat1, alphat2=eq.alphat2, t_min=eq.t_min)
+    for n, t in per_species.items():
+        assert list(getattr(run, n)[:ns]) == t.tolist(), n
+        assert not any(getattr(run, n)[ns:]), n
+    for n, t in (("omgrf", pp.rf.omgrf), ("omgrf_ref", pp.rf.omgrf_ref), ("k0", pp.rf.k0),
+                 ("ds", pp.ode.ds), ("s_max", pp.ode.s_max),
+                 ("dispersion_resid_limit", pp.limits.dispersion_resid_limit),
+                 ("total_damping_limit", pp.limits.total_damping_limit),
+                 ("ms0", sp.ms[0])):
+        assert getattr(run, n) == t.item(), n
+    assert run.clight == pytest.approx(constants.CLIGHT, rel=1e-7)
+    assert (run.nstep_max, run.save_trajectory, run.time_param) == (
+        pcfg.nstep_max, int(pcfg.save_trajectory), int(pcfg.ray_param == "time"))
+    assert list(run.t_model[:ns]) == [tfused._T_MODELS[m] for m in pcfg.eq_static.t_prof_model]

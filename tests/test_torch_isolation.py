@@ -20,6 +20,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "rays_tpu_torch",
     "rays_tpu_torch.run, rays_tpu_torch.tracing.fused_slab",
     "rays_tpu_torch.convert, rays_tpu_torch.examples, rays_tpu_torch.native",
+    "rays_tpu_torch.post.deposition, rays_tpu_torch.ops.binning, "
+    "rays_tpu_torch.ops.zfun, rays_tpu_torch.wave.damping",
 ])
 def test_import_pulls_in_no_jax(modules):
     code = (f"import sys, {modules}\n"

@@ -4,8 +4,12 @@ wrapper code as the CUDA library (fused_slab.run_library).
 
 float64 is held to the JAX Pallas kernel in interpret mode and to the
 plain twin (1e-9 of scale, equal flags and npoints); float32 is held to
-the JAX float64 scan at the bounds of tests/test_fused.py.  This is where
-the kernel's arithmetic is checked before it runs on the card."""
+the JAX float64 scan at the bounds of tests/test_fused.py.  The damped
+body (one build per damping variant) is held to the plain twin and to
+the JAX scan (the Pallas kernel has no damping) at 1e-9 of scale with
+the absorption slots within 1e-12 absolute, and at float32 to the JAX
+float64 scan at the bounds of tests/test_precision.py.  This is where the
+kernel's arithmetic is checked before it runs on the card."""
 
 import dataclasses
 import functools
@@ -18,18 +22,25 @@ import torch
 
 import _torch_parity as tp
 import rays_tpu  # noqa: F401  (x64 on)
+from rays_tpu import examples as jex
 from rays_tpu.tracing import fused_slab as jfused, trace as jtrace
 from rays_tpu.tracing.stop import StopCode
 from rays_tpu_torch.tracing import fused_slab as tfused
 
 RTOL = 1e-9
+ABSORB_ATOL = 1e-12
 
 
 @pytest.fixture(scope="module")
-def host_lib():
+def host_libs():
     if shutil.which("g++") is None:
         pytest.skip("g++ not found: the host build of the kernel body needs it")
-    return tp.host_kernel_library()
+    return tp.host_kernel_libraries()
+
+
+@pytest.fixture(scope="module")
+def host_lib(host_libs):
+    return host_libs[0]
 
 
 def _compare(got, ref, rtol, trajectory=False):
@@ -128,3 +139,47 @@ def test_host_f32_matches_jax_f64_scan(host_lib):
     tp.assert_scaled_close(got.end_ray_vec, ref.end_ray_vec, 5e-4, axis=-1, what="f32 end")
     mr = got.max_residuals.double().numpy()
     assert np.isfinite(mr).all() and (mr > 0).all() and mr.max() < 5e-3
+
+
+def _damped_case(multi):
+    """The damped example (400 steps, trajectories on), with or without
+    the per-species slots, and its JAX float64 trace."""
+    cfg, params, v0, st, pwr = tp.jax_case(jex.SLAB_ECH_DAMPED, multi_spec_damping=multi)
+    v0 = np.asarray(v0)[:, :cfg.nv]
+    ref = jax.jit(lambda p, v, s, w: jtrace.trace_batch(cfg, p, v, s, w))(params, v0, st, pwr)
+    ref = jax.tree_util.tree_map(lambda a: torch.from_numpy(np.array(a)), ref)
+    return (cfg, params, v0, st, pwr), ref
+
+
+@pytest.mark.parametrize("multi", [True, False], ids=["multi_spec", "total_only"])
+def test_host_damped_matches_plain_and_jax(host_libs, multi):
+    (cfg, params, v0, st, pwr), jref = _damped_case(multi)
+    pcfg, pp, tv0, tst, tpw = tp.to_port(cfg, params, v0, st, pwr)
+    assert tfused.supported(pcfg) and pcfg.nv == (10 if multi else 8)
+    lib = host_libs[tfused._variant(pcfg)]
+    got = tfused.run_library(lib, pcfg, pp, tv0, tst, tpw)
+    assert set(got.stop_flag.tolist()) == {int(StopCode.TOTAL_ABSORPTION)}
+    assert got.end_ray_vec[:, 7].min() > 0.98
+    plain = tfused.trace_batch_fused_reference(pcfg, pp, tv0, tst, tpw)
+    for ref in (plain, jref):
+        _compare(got, ref, RTOL, trajectory=True)
+        np.testing.assert_allclose(got.ray_vec[..., 7:].numpy(), ref.ray_vec[..., 7:].numpy(),
+                                   rtol=0, atol=ABSORB_ATOL)
+    # a library of another damping variant refuses the config
+    with pytest.raises(ValueError, match="damping variant"):
+        tfused.run_library(host_libs[0], pcfg, pp, tv0, tst, tpw)
+
+
+@pytest.mark.parametrize("multi", [True, False], ids=["multi_spec", "total_only"])
+def test_host_damped_f32_matches_jax_f64(host_libs, multi):
+    """tests/test_precision.py's damped bounds: positions and k within
+    5e-4 of trajectory scale, integrated absorption within 2e-4."""
+    (cfg, params, v0, st, pwr), ref = _damped_case(multi)
+    pcfg, pp, tv0, tst, tpw = tp.to_port(cfg, params, v0, st, pwr, dtype=torch.float32)
+    got = tfused.run_library(host_libs[tfused._variant(pcfg)], pcfg, pp, tv0, tst, tpw)
+    assert got.ray_vec.dtype == torch.float32
+    assert got.npoints.tolist() == ref.npoints.tolist()
+    assert got.stop_flag.tolist() == ref.stop_flag.tolist()
+    tp.assert_scaled_close(got.ray_vec, ref.ray_vec, 5e-4, axis=1, what="f32 trajectory")
+    np.testing.assert_allclose(got.end_ray_vec[:, 7].double().numpy(),
+                               ref.end_ray_vec[:, 7].numpy(), rtol=0, atol=2e-4)

@@ -227,12 +227,16 @@ def test_eqn_ray_and_check(case, ray_param):
 
 
 def test_rhs_refuses_later_slices():
+    """The A14 options raise; damping (A11) runs, with its slots."""
     jcfg, jparams, *_ = tp.jax_case()
     pcfg, pp = tp.to_port(jcfg, jparams)
     v = torch.zeros((1, 7), dtype=torch.float64)
     v[0, 0], v[0, 3] = -0.08, 1.0
-    for change, item in ((dict(damping_model="damp_fund_ECH"), "A11"),
-                         (dict(integrate_eq_gradients=True), "A14"),
-                         (dict(ray_deriv_name="autodiff"), "A14")):
-        with pytest.raises(NotImplementedError, match=item):
+    for change in (dict(integrate_eq_gradients=True), dict(ray_deriv_name="autodiff")):
+        with pytest.raises(NotImplementedError, match="A14"):
             trhs.eqn_ray(dataclasses.replace(pcfg, **change), pp, 0.0, v)
+    damped = dataclasses.replace(pcfg, damping_model="damp_fund_ECH")
+    vd = torch.cat([v, torch.zeros((1, 1), dtype=torch.float64)], dim=1)
+    dv, st = trhs.eqn_ray(damped, pp, 0.0, vd)
+    assert dv.shape == (1, damped.nv) == (1, 8) and st.tolist() == [0]
+    assert torch.equal(dv[:, :7], trhs.eqn_ray(pcfg, pp, 0.0, v)[0])

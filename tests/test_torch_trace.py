@@ -144,10 +144,14 @@ def test_trace_rays_cpu_runs_plain_tracer():
     b = ttrace.trace_batch(cfg, params, v0, st, pwr)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+    # a leaf that requires grad takes the adjoint route: trace_batch, with
+    # the same values and a graph back to the leaf
     grad_params = params._replace(rf=params.rf._replace(
         omgrf=params.rf.omgrf.clone().requires_grad_(True)))
-    with pytest.raises(NotImplementedError, match="A9"):
-        ttrace.trace_rays(cfg, grad_params, v0, st, pwr)
+    g = ttrace.trace_rays(cfg, grad_params, v0, st, pwr)
+    for x, y in zip(g, b):
+        assert torch.equal(x.detach(), y)
+    assert g.end_ray_vec.requires_grad
     with pytest.raises(NotImplementedError, match="A10"):
         ttrace.trace_batch(dataclasses.replace(cfg, ode_solver_name="SG_ODE"),
                            params, v0, st, pwr)
