@@ -18,6 +18,16 @@ damped batch, 32,768 rays x 400 steps, f64 and f32, timed.  Phase 9: the
 training step of __graft_entry__.py on one GPU.  The last lines are the
 total wall time, a JSON summary of the kernels and {"ok": true, "device":
 {...}}.  Without a CUDA device it exits non-zero and prints no result.
+
+Beside each kernel time stands its bound, the least time the card could
+take for the same work: the larger of the bytes the kernel must move over
+the memory rate and the floating-point operations it must do over the
+peak rate of their type.  The operations are counted, not estimated: the
+kernel body runs the example's rays once on the CPU on a type that counts
+its arithmetic (fused_slab.count_ops), so a ray that stops early or an
+evaluation without a live Dawson sum counts what it needed.  Phase 2
+prints the registers, spills and the occupancy the runtime grants; phases
+5 and 8 also time the kernel with the card filled (524,288 rays).
 """
 
 import dataclasses
@@ -43,6 +53,19 @@ LOSS_RTOL = 1e-10       # training loss: kernel forward vs autograd forward
 FD_RTOL = 2e-4          # directional derivative vs central difference
 FD_EPS = 1e-7           # relative step of the finite difference
 N_BINS = 32
+N_FILL = 524288         # rays that fill the card (16 x N_RAYS), kernel only
+# NVIDIA's H100 SXM data sheet: memory rate, and FP64 / FP32 rates outside
+# the tensor cores (an FMA is two operations)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
+# special-function unit: 16 results per clock per SM, 132 SMs at 1.98 GHz;
+# the float32 exponential is one such instruction (float64 has no unit)
+SFU_PER_S = 16 * 132 * 1.98e9
+# floating-point instructions among the 60 that nvcc emits for one
+# exp(double) on sm_90a (tools/slab_rk4_probe.py sass): the bound with an
+# exponential at that cost is printed beside the one that counts it as a
+# single operation
+EXP_F64_INSTRUCTIONS = 20
 
 
 def fail(msg):
@@ -83,6 +106,50 @@ def timed(fn):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end), out
+
+
+def ops_per_example_ray(fused_slab, examples, text):
+    """[{kind: operations}] and [npoints] for each of the example's launch
+    rays, counted on the CPU by the kernel body itself."""
+    cfg, params, v0, st0, _ = examples.setup_example(text, device="cpu", dtype=torch.float64)
+    lib = fused_slab.load_host_libraries()[fused_slab._variant(cfg)]
+    ops, npts = [], []
+    for i in range(v0.shape[0]):
+        o, n = fused_slab.count_ops(lib, cfg, params, v0[i:i + 1].contiguous(),
+                                    st0[i:i + 1].contiguous())
+        ops.append(o)
+        npts.append(int(n[0]))
+    return ops, npts
+
+
+def kernel_bound(ray_ops, n_rays, nv, dtype):
+    """(bound ms, 'bytes' or 'operations', detail) of one launch on n_rays
+    rays that tile the example's launch rays (examples.replicate_rays).
+    Bytes: v0 and status0 read, the end state, two int32 and two residuals
+    per ray written.  Operations: every add, multiply, divide, square root,
+    exponential and power as one, at the published peak of the type; for
+    float32 also the exponentials at the special-function rate."""
+    reps = np.bincount(np.arange(n_rays) % len(ray_ops), minlength=len(ray_ops))
+    total = {k: int(sum(r * o[k] for r, o in zip(reps, ray_ops))) for k in ray_ops[0]}
+    flops = sum(total.values())
+    size = torch.finfo(dtype).bits // 8
+    n_bytes = n_rays * (2 * nv * size + 3 * 4 + 2 * size)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    if dtype == torch.float32:
+        t_ops = max(t_ops, total["exp"] / SFU_PER_S * 1e3)
+    detail = dict(total, flops=flops, bytes=n_bytes, ms_bytes=t_bytes, ms_ops=t_ops)
+    if dtype == torch.float64:
+        detail["ms_ops_exp_expanded"] = (
+            (flops + (EXP_F64_INSTRUCTIONS - 1) * total["exp"]) / PEAK_FLOPS[dtype] * 1e3)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), detail
+
+
+def time_kernel(fused_slab, cfg, params, v, st, w, reps=3):
+    """Least of ``reps`` kernel times in ms, after a warm-up."""
+    kern = lambda: fused_slab.trace_batch_fused(cfg, params, v, st, w)
+    kern()
+    return min(timed(kern)[0] for _ in range(reps))
 
 
 def time_plain_and_kernel(fused_slab, cfg, params, v, st, w):
@@ -137,6 +204,27 @@ def main():
         reports.append(f"variant {variant}: " + ", ".join(ptxas))
     print(f"phase 2 build: slab_rk4 variants {sorted(libs)} for sm_90a in {build_s:.1f} s "
           f"(built side by side); ptxas: " + "; ".join(reports))
+    # what the runtime grants the instantiations that the phases below launch
+    occupancy = {}
+    for variant in (0, 2):
+        for dt, name in ((torch.float64, "f64"), (torch.float32, "f32")):
+            occ = fused_slab.occupancy(libs[variant][0], dt, 2)
+            require(occ["blocks_per_sm"] >= 1, f"variant {variant} {name} cannot launch: {occ}")
+            occupancy[variant, dt] = occ
+            print(f"phase 2 occupancy: variant {variant} {name} S=2: {occ['registers']} "
+                  f"registers, {occ['local_bytes']} B local, {occ['blocks_per_sm']} blocks "
+                  f"x {occ['threads']} threads = {occ['warps_per_sm']} warps per SM")
+    # the operations the two batches need, counted by the host build
+    t0 = time.perf_counter()
+    ops_u, npts_u = ops_per_example_ray(fused_slab, examples, examples.SLAB_ECH_90GHZ)
+    ops_d, npts_d = ops_per_example_ray(fused_slab, examples, examples.SLAB_ECH_DAMPED)
+    for name, ops, npts in (("slab_rk4", ops_u, npts_u), ("slab_rk4_damped", ops_d, npts_d)):
+        steps = sum(npts) - len(npts)
+        per_step = {k: round(sum(o[k] for o in ops) / steps, 2) for k in ops[0]}
+        print(f"phase 2 operations, {name}: example rays of {npts} points, per ray step "
+              f"{per_step} (sum {sum(per_step.values()):.1f})")
+    print(f"phase 2 operation count (g++ build and run on the CPU): "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # phase 3: the example, 3 rays x 500 steps, trajectories on
     dev = torch.device("cuda", 0)
@@ -178,6 +266,7 @@ def main():
     err64 = scaled_err(big64.end_ray_vec, plain64.end_ray_vec, per_ray_axis=-1)
     abs64 = float((big64.end_ray_vec - plain64.end_ray_vec).abs().max())
     require(err64 <= TRAJ_RTOL, f"f64 endpoint error {err64:.3e} > {TRAJ_RTOL}")
+    require(big64.npoints[:3].tolist() == npts_u, "counted rays stop elsewhere than the batch's")
     params32 = tree_to(params, dtype=f32)
     vb32, wb32 = vb.to(f32), wb.to(f32)
     big32 = fused_slab.trace_batch_fused(cfg_b, params32, vb32, stb, wb32)
@@ -194,7 +283,20 @@ def main():
           f"max residual {res32:.3e}; npoints {sorted(set(big64.npoints.tolist()))}")
 
     # phase 5: timing, plain / kernel / kernel / plain, per dtype
-    times = {}
+    def report_bound(phase, name, ray_ops, n_rays, nv, dt, t_kern):
+        bound, by, d = kernel_bound(ray_ops, n_rays, nv, dt)
+        expanded = (f"; with exp at {EXP_F64_INSTRUCTIONS} operations "
+                    f"{d['ms_ops_exp_expanded']:.4f} ms, share "
+                    f"{d['ms_ops_exp_expanded'] / t_kern:.4f}"
+                    if d.get("exp") and dt == f64 else "")
+        print(f"{phase} {name} {n_rays} rays: kernel {t_kern:.3f} ms, bound {bound:.4f} ms by "
+              f"{by} ({d['flops']:.4e} operations: {d['div']:.3e} div, {d['sqrt']:.3e} sqrt, "
+              f"{d['exp']:.3e} exp; {d['bytes']:.3e} bytes = {d['ms_bytes']:.5f} ms), share of "
+              f"bound {bound / t_kern:.4f}{expanded} on {card}")
+        return bound, by
+
+    times, bounds = {}, {}
+    vf, stf, wf = examples.replicate_rays(v0, st0, pwr, N_FILL)
     for dt, p_, v_, w_ in ((f32, params32, vb32, wb32), (f64, params, vb, wb)):
         t_kern, t_plain, runs = time_plain_and_kernel(fused_slab, cfg_b, p_, v_, stb, w_)
         times[dt] = (t_kern, t_plain)
@@ -204,6 +306,12 @@ def main():
               f"{runs[1]:.3f}, {runs[2]:.3f}), plain {t_plain:.1f} ms "
               f"({N_RAYS / t_plain * 1e3:.0f} rays/s; runs {runs[0]:.1f}, "
               f"{runs[3]:.1f}), speedup {t_plain / t_kern:.1f}x on {card}")
+        bounds[dt] = report_bound("phase 5", name, ops_u, N_RAYS, cfg.nv, dt, t_kern)
+        t_fill = time_kernel(fused_slab, cfg_b, p_, vf.to(dt), stf, wf.to(dt))
+        print(f"phase 5 {name} {N_FILL} rays x {cfg.nstep_max} steps (card filled): kernel "
+              f"{t_fill:.3f} ms ({N_FILL / t_fill * 1e3:.0f} rays/s)")
+        report_bound("phase 5", name, ops_u, N_FILL, cfg.nv, dt, t_fill)
+    del vf, stf, wf
 
     # phase 6: the CLI end to end, in a temporary directory
     cwd = os.getcwd()
@@ -281,7 +389,10 @@ def main():
           f"absorption err {db_abs:.3e}; f32 kernel vs f64 plain {db32_err:.3e} of "
           f"scale, absorption err {db32_abs:.3e}; npoints "
           f"{sorted(set(db64.npoints.tolist()))}")
-    damped_times = {}
+    require(db64.npoints[:3].tolist() == npts_d,
+            "counted damped rays stop elsewhere than the batch's")
+    damped_times, damped_bounds = {}, {}
+    vf, stf, wf = examples.replicate_rays(v0_d, st0_d, pwr_d, N_FILL)
     for dt, p_, v_, w_ in ((f32, params_d32, vd32, wd32), (f64, params_d, vd, wd)):
         t_kern, t_plain, runs = time_plain_and_kernel(fused_slab, cfg_db, p_, v_, std, w_)
         damped_times[dt] = (t_kern, t_plain)
@@ -291,6 +402,13 @@ def main():
               f"{runs[1]:.3f}, {runs[2]:.3f}), plain {t_plain:.1f} ms "
               f"({N_RAYS / t_plain * 1e3:.0f} rays/s; runs {runs[0]:.1f}, "
               f"{runs[3]:.1f}), speedup {t_plain / t_kern:.1f}x on {card}")
+        damped_bounds[dt] = report_bound("phase 8 damped", name, ops_d, N_RAYS, cfg_d.nv, dt,
+                                         t_kern)
+        t_fill = time_kernel(fused_slab, cfg_db, p_, vf.to(dt), stf, wf.to(dt))
+        print(f"phase 8 damped {name} {N_FILL} rays x {cfg_d.nstep_max} steps (card filled): "
+              f"kernel {t_fill:.3f} ms ({N_FILL / t_fill * 1e3:.0f} rays/s)")
+        report_bound("phase 8 damped", name, ops_d, N_FILL, cfg_d.nv, dt, t_fill)
+    del vf, stf, wf
 
     # phase 9: the training step of __graft_entry__.py on one GPU
     xmin, xmax = float(params_d.eq.xmin), float(params_d.eq.xmax)
@@ -376,9 +494,10 @@ def main():
     total_s = time.perf_counter() - t_start
     print(f"total wall time {total_s:.1f} s")
     kernels = []
-    for name, launches, err, (t_kern, t_plain) in (
-            ("slab_rk4", main_launches, abs64, times[f64]),
-            ("slab_rk4_damped", damped_launches, db_max_abs, damped_times[f64])):
+    for name, launches, err, (t_kern, t_plain), (bound, bound_by) in (
+            ("slab_rk4", main_launches, abs64, times[f64], bounds[f64]),
+            ("slab_rk4_damped", damped_launches, db_max_abs, damped_times[f64],
+             damped_bounds[f64])):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -388,6 +507,10 @@ def main():
             "max_abs_err": err,
             "ms": t_kern,
             "plain_ms": t_plain,
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            # no single PyTorch call computes an RK4 trajectory
+            "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

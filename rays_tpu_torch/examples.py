@@ -98,9 +98,11 @@ SLAB_ECH_DAMPED = """
 
 
 
-def setup_example(text=SLAB_ECH_90GHZ, device="cpu", dtype=torch.float64):
+def setup_example(text=SLAB_ECH_90GHZ, device="cuda", dtype=torch.float64):
     """Namelist text -> (cfg, params, v0, status0, pwr_wt) on ``device`` in
-    ``dtype``.  Ray init runs once on the CPU in float64, as in the JAX
+    ``dtype``.  Like ``run.setup`` it puts the run on the card unless asked
+    for the CPU (``device="cpu"``), and raises where there is no CUDA
+    device.  Ray init runs once on the CPU in float64, as in the JAX
     package, and its result is then cast and moved."""
     from rays_tpu_torch import run as runner
     from rays_tpu_torch.config import schema

@@ -9,10 +9,24 @@ physics in ``csrc/slab_rk4.cuh``) runs one thread per ray, keeps the
 the endpoint evaluation into the next step's first RK stage (4 equilibrium
 evaluations per step, the order of arithmetic of ``trace_batch``), and, on
 top of what the Pallas kernel did, writes the trajectory when
-``cfg.save_trajectory`` is on.  What bounds it on the card is FP64/FP32
-arithmetic (about 1.4k flops per ray step, plus an 84-term Dawson sum per
-evaluation with damping); it reads nothing from device memory between
-steps.
+``cfg.save_trajectory`` is on.
+
+What bounds it on the card is FP64/FP32 arithmetic, not memory: about
+1.4k operations per ray step at two species (four evaluations of about
+340; 11 divisions and 9 square roots among them), plus, with damping, a
+Dawson sum at the evaluations where damping is live; it reads nothing
+from device memory between steps.  So the design works on instructions
+per step and on warps per SM: divisions by constants of the run became
+multiplications by reciprocals that the launcher derives once (the second
+block of ``SlabRun``), groups sharing a denominator take one reciprocal,
+the RK sum is folded into one accumulator and the slots that cannot move
+in a slab are carried as constants (fewer registers), blocks are 64
+threads under a register cap chosen per precision and variant on the
+card, and the Dawson sum is skipped where its result is masked, cut where
+its terms cannot change it, and multiplies by a table of 1/n.
+``occupancy`` reports the warps an SM holds; ``count_ops`` (host build)
+counts the operations a batch needs, from which ``chip_smoke.py`` takes
+the kernel's bound.
 
 The damping variant (none, damp_fund_ECH, damp_fund_ECH with per-species
 slots) fixes the state width at compile time, so each variant is its own
@@ -30,6 +44,7 @@ the same outputs.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import os
 import shutil
@@ -87,6 +102,11 @@ _SCALARS = ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax", "rmaj", "rmin", "x0"
 _SPECIES = ("alpha_coef", "gamma_coef", "n0s", "t0s", "alphat1", "alphat2", "t_min")
 _RUN = ("omgrf", "omgrf_ref", "k0", "ds", "s_max", "dispersion_resid_limit",
         "total_damping_limit", "ms0", "clight")
+# filled by the library (rays::derive_run) from the fields above
+_DERIVED = ("inv_k0", "inv_k0sq", "inv_omgrf", "inv_rmaj", "inv_rmin", "inv_lby", "inv_lbz",
+            "inv_ln", "inv_lt", "gauss_coef", "half_ds", "sixth_ds", "omgc_coef",
+            "two_over_ms0", "inv_clight")
+_DERIVED_SPECIES = ("alpha_w2", "gamma_w", "dn_linear")
 _INTS = ("by_model", "bz_model", "dens_model", "time_param", "nstep_max",
          "save_trajectory")
 
@@ -96,6 +116,8 @@ def _struct_type(ctype):
         _fields_ = ([(n, ctype) for n in _SCALARS]
                     + [(n, ctype * MAX_SPECIES) for n in _SPECIES]
                     + [(n, ctype) for n in _RUN]
+                    + [(n, ctype) for n in _DERIVED]
+                    + [(n, ctype * MAX_SPECIES) for n in _DERIVED_SPECIES]
                     + [(n, ctypes.c_int32) for n in _INTS]
                     + [("t_model", ctypes.c_int32 * MAX_SPECIES)])
     return SlabRun
@@ -114,7 +136,8 @@ def _variant(cfg) -> int:
 
 
 def _run_struct(cfg, params, dtype):
-    """Read the run constants from Params with one device-to-host copy."""
+    """Read the run constants from Params with one device-to-host copy.
+    The derived fields stay zero: the library's launchers fill them."""
     sp, eq, rf = params.species, params.eq, params.rf
     values = {**{n: getattr(eq, n) for n in _SCALARS},
               "alpha_coef": sp.alpha_coef, "gamma_coef": sp.gamma_coef, "n0s": sp.n0s,
@@ -165,6 +188,54 @@ def bind(lib):
     return lib
 
 
+def occupancy(lib, dtype, nspecies):
+    """What the CUDA runtime reports for the kernel instantiation that a
+    launch of ``lib`` at ``dtype`` and ``nspecies`` runs: {threads per
+    block, blocks per SM, warps per SM, registers, local bytes}."""
+    out = (ctypes.c_int * 4)()
+    fn = lib.rays_slab_occupancy
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    rc = fn(int(dtype == torch.float64), nspecies, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"slab RK4 occupancy query failed with CUDA error {rc}")
+    threads, blocks, regs, local = out
+    return {"threads": threads, "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
+            "registers": regs, "local_bytes": local}
+
+
+OP_KINDS = ("add", "mul", "div", "sqrt", "exp", "pow")
+
+
+def count_ops(host_lib, cfg, params, v0, status0):
+    """Floating-point operations that the kernel body needs for these rays,
+    by kind (``OP_KINDS``): the float64 trajectories run once on the CPU on
+    a type that counts its arithmetic (``csrc/host_shim.cpp``).  Also
+    returns npoints.  ``host_lib`` is a bound host build of the config's
+    damping variant; the tensors are float64 on the CPU."""
+    _check_inputs(cfg, v0, status0)
+    if v0.dtype != torch.float64 or v0.device.type != "cpu":
+        raise ValueError("count_ops takes float64 CPU tensors")
+    if host_lib.rays_slab_damping() != _variant(cfg):
+        raise ValueError("the host library holds another damping variant")
+    B, nv = v0.shape
+    cfg = dataclasses.replace(cfg, save_trajectory=False)
+    run = _run_struct(cfg, params, torch.float64)
+    v_out = torch.empty((B, nv), dtype=torch.float64)
+    stop, npoints = (torch.empty((B,), dtype=torch.int32) for _ in range(2))
+    end_res, max_res = (torch.empty((B,), dtype=torch.float64) for _ in range(2))
+    ops = (ctypes.c_int64 * len(OP_KINDS))()
+    fn = host_lib.rays_slab_count_ops
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int64] + [ctypes.c_void_p] * 8)
+    fn.restype = ctypes.c_int
+    rc = fn(ctypes.addressof(run), cfg.ns, v0.data_ptr(), status0.data_ptr(), B,
+            v_out.data_ptr(), stop.data_ptr(), npoints.data_ptr(), end_res.data_ptr(),
+            max_res.data_ptr(), None, None, ctypes.addressof(ops))
+    if rc != 0:
+        raise RuntimeError(f"rays_slab_count_ops failed ({rc})")
+    return dict(zip(OP_KINDS, ops)), npoints
+
+
 def _nvcc():
     found = shutil.which("nvcc")
     if found:
@@ -190,6 +261,29 @@ def load_libraries():
 
     built = native.build_all([spec(v) for v in VARIANTS])
     return {v: (bind(ctypes.CDLL(str(path))), log) for v, (path, log) in zip(VARIANTS, built)}
+
+
+HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
+
+
+@functools.lru_cache(maxsize=None)
+def load_host_libraries():
+    """Build (at first use, with g++) and load the host builds of the
+    kernel body, ``csrc/host_shim.cpp``: the same per-ray code as a loop
+    over rays on the CPU, for the CPU tests and for ``count_ops``.  Nothing
+    on the tracing path uses them.  Returns {variant: library}."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host build of the kernel body needs it")
+    files = [native.CSRC / "host_shim.cpp", native.CSRC / "slab_rk4.cuh"]
+
+    def spec(variant):
+        return (f"slab_rk4_host_d{variant}", files,
+                lambda out: [gxx, *HOST_FLAGS, f"-DRAYS_DAMPING={variant}", "-o", str(out),
+                             "host_shim.cpp"])
+
+    built = native.build_all([spec(v) for v in VARIANTS])
+    return {v: bind(ctypes.CDLL(str(path))) for v, (path, _) in zip(VARIANTS, built)}
 
 
 def _check_inputs(cfg, v0, status0):

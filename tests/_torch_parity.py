@@ -4,9 +4,7 @@ Inputs are built once on the JAX side and carried to the port through
 ``rays_tpu_torch.convert``, so both packages compute on identical numbers.
 """
 
-import ctypes
 import dataclasses
-import shutil
 
 import jax
 import jax.numpy as jnp
@@ -16,8 +14,7 @@ import torch
 import rays_tpu  # noqa: F401  (x64 on)
 from rays_tpu import examples as jex
 from rays_tpu.models import slab as jslab
-from rays_tpu_torch import convert, native
-from rays_tpu_torch.tracing import fused_slab
+from rays_tpu_torch import convert
 
 # slab profile-model combinations: together they cover every model of
 # models/slab.py (by, bz, density, per-species temperature)
@@ -85,21 +82,3 @@ def assert_scaled_close(got, ref, rtol, axis, what=""):
         err = np.abs(got[..., sl] - r) / scale
         assert np.all(err <= rtol), (
             f"{what} {name}: max scaled error {err.max():.3e} > {rtol}")
-
-
-def host_kernel_libraries():
-    """g++ builds of csrc/slab_rk4.cuh through csrc/host_shim.cpp (into the
-    gitignored build/), one per damping variant, bound like the CUDA
-    libraries: {variant: library}."""
-    gxx = shutil.which("g++")
-    files = [native.CSRC / "host_shim.cpp", native.CSRC / "slab_rk4.cuh"]
-
-    def spec(variant):
-        return (f"slab_rk4_host_d{variant}", files,
-                lambda out: [gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
-                             "-fPIC", f"-DRAYS_DAMPING={variant}", "-o", str(out),
-                             "host_shim.cpp"])
-
-    built = native.build_all([spec(v) for v in fused_slab.VARIANTS])
-    return {v: fused_slab.bind(ctypes.CDLL(str(path)))
-            for v, (path, _) in zip(fused_slab.VARIANTS, built)}

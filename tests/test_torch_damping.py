@@ -207,7 +207,7 @@ def test_damped_trace_matches_jax(damped_trace):
 def test_damped_trace_matches_oracle():
     """The damped example's full 400 steps against the scalar NumPy
     transcription of the reference (tests/test_parity.py's damped bound)."""
-    cfg, params, v0, st, pwr = tex.setup_example(tex.SLAB_ECH_DAMPED)
+    cfg, params, v0, st, pwr = tex.setup_example(tex.SLAB_ECH_DAMPED, device="cpu")
     res = ttrace.trace_batch(cfg, params, v0, st, pwr)
     assert set(res.stop_flag.tolist()) == {int(StopCode.TOTAL_ABSORPTION)}
     oc = _oracle_cfg(cfg, params, _slab_eq_fn(cfg, params))

@@ -46,6 +46,18 @@ def test_cuda_inputs_raise_without_cuda():
         examples.setup_example(examples.SLAB_ECH_90GHZ, device="cuda")
 
 
+def test_setup_example_defaults_to_cuda_and_raises_without_it():
+    """The library example's first call puts the run on the card, like the
+    CLI; the CPU has to be asked for."""
+    _no_cuda()
+    with pytest.raises((RuntimeError, AssertionError)):
+        examples.setup_example()
+    with pytest.raises((RuntimeError, AssertionError)):
+        examples.setup_example(examples.SLAB_ECH_DAMPED)
+    cfg, params, v0, st, pwr = examples.setup_example(device="cpu")
+    assert v0.device.type == "cpu" and params.rf.omgrf.device.type == "cpu"
+
+
 def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
     _no_cuda()
     path = tmp_path / "slab.in"
@@ -59,7 +71,7 @@ def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
 def test_non_cpu_tensors_never_run_the_plain_tracer():
     """Tensors off the CPU go to the kernel or raise; 'meta' stands in for
     a device the port has no path for."""
-    cfg, params, v0, st, pwr = examples.setup_example(examples.SLAB_ECH_90GHZ)
+    cfg, params, v0, st, pwr = examples.setup_example(examples.SLAB_ECH_90GHZ, device="cpu")
     before = fused_slab.LAUNCHES
     with pytest.raises(ValueError, match="unsupported device"):
         trace_rays(cfg, params, v0.to("meta"), st.to("meta"), pwr.to("meta"))

@@ -11,6 +11,7 @@ the absorption slots within 1e-12 absolute, and at float32 to the JAX
 float64 scan at the bounds of tests/test_precision.py.  This is where the
 kernel's arithmetic is checked before it runs on the card."""
 
+import ctypes
 import dataclasses
 import functools
 import shutil
@@ -25,6 +26,7 @@ import rays_tpu  # noqa: F401  (x64 on)
 from rays_tpu import examples as jex
 from rays_tpu.tracing import fused_slab as jfused, trace as jtrace
 from rays_tpu.tracing.stop import StopCode
+from rays_tpu_torch.core.types import tree_to
 from rays_tpu_torch.tracing import fused_slab as tfused
 
 RTOL = 1e-9
@@ -35,7 +37,7 @@ ABSORB_ATOL = 1e-12
 def host_libs():
     if shutil.which("g++") is None:
         pytest.skip("g++ not found: the host build of the kernel body needs it")
-    return tp.host_kernel_libraries()
+    return tfused.load_host_libraries()
 
 
 @pytest.fixture(scope="module")
@@ -92,12 +94,20 @@ def test_host_profile_models_match_plain(host_lib, combo):
 
 
 @pytest.mark.parametrize("stop", ["x_bounds", "s_max", "resid_limit", "not_started",
-                                  "negative_temp"])
+                                  "negative_temp", "infinite_vg", "ray_stalled"])
 def test_host_stops_match_plain(host_lib, stop):
     """Each stop of the loop, with the rows past it left zero."""
-    cfg, params, v0, st, pwr = tp.jax_case(nstep_max=60)
+    cfg, params, v0, st, pwr = tp.jax_case(
+        nstep_max=60, ray_param="arcl" if stop == "ray_stalled" else "time")
     pcfg, pp, tv0, tst, tpw = tp.to_port(cfg, params, v0, st, pwr)
     one = torch.ones((), dtype=torch.float64)
+    if stop in ("infinite_vg", "ray_stalled"):
+        # k = 0 passes the initial check only under a lax residual limit;
+        # then dD/dk = 0 exactly (the ray stalls), and in a vacuum without
+        # a field dD/dw = 0 too (the guarded reciprocal's case)
+        tv0 = tv0.clone()
+        tv0[:, 3:6] = 0.0
+        pp = pp._replace(limits=pp.limits._replace(dispersion_resid_limit=10.0 * one))
     if stop == "x_bounds":
         pp = pp._replace(eq=pp.eq._replace(xmax=-0.0795 * one))
         want = StopCode.X_OUT_OF_BOUNDS
@@ -107,6 +117,13 @@ def test_host_stops_match_plain(host_lib, stop):
     elif stop == "resid_limit":
         pp = pp._replace(limits=pp.limits._replace(dispersion_resid_limit=1.5e-9 * one))
         want = StopCode.DISPERSION_RESIDUAL
+    elif stop == "infinite_vg":
+        st_ = dataclasses.replace(pcfg.eq_static, by_prof_model="zero", bz_prof_model="zero")
+        pcfg = dataclasses.replace(pcfg, eq_static=st_)
+        pp = pp._replace(species=pp.species._replace(n0s=0.0 * pp.species.n0s))
+        want = StopCode.INFINITE_VG
+    elif stop == "ray_stalled":
+        want = StopCode.RAY_STALLED
     elif stop == "not_started":
         tst = tst.clone()
         tst[1] = int(StopCode.DID_NOT_START)
@@ -121,6 +138,8 @@ def test_host_stops_match_plain(host_lib, stop):
     assert int(want) in ref.stop_flag.tolist()
     got = tfused.run_library(host_lib, pcfg, pp, tv0, tst, tpw)
     _compare(got, ref, RTOL, trajectory=True)
+    if stop in ("infinite_vg", "ray_stalled"):
+        assert got.npoints.tolist() == [1] * 3 and torch.isfinite(got.end_ray_vec).all()
 
 
 def test_host_f32_matches_jax_f64_scan(host_lib):
@@ -171,6 +190,24 @@ def test_host_damped_matches_plain_and_jax(host_libs, multi):
 
 
 @pytest.mark.parametrize("multi", [True, False], ids=["multi_spec", "total_only"])
+def test_host_damped_time_parameter_matches_plain(host_libs, multi):
+    """With time as the ray parameter the damping's group-velocity
+    direction is f[0:3] over its magnitude (one reciprocal), where arc
+    length has a unit vector already."""
+    cfg, params, v0, st, pwr = tp.jax_case(jex.SLAB_ECH_DAMPED, ds=1.2e-11, ray_param="time",
+                                           multi_spec_damping=multi)
+    v0 = np.asarray(v0)[:, :cfg.nv]
+    pcfg, pp, tv0, tst, tpw = tp.to_port(cfg, params, v0, st, pwr)
+    got = tfused.run_library(host_libs[tfused._variant(pcfg)], pcfg, pp, tv0, tst, tpw)
+    ref = tfused.trace_batch_fused_reference(pcfg, pp, tv0, tst, tpw)
+    assert int(StopCode.TOTAL_ABSORPTION) in got.stop_flag.tolist()
+    assert got.end_ray_vec[:, 7].max() > 0.98
+    _compare(got, ref, RTOL, trajectory=True)
+    np.testing.assert_allclose(got.ray_vec[..., 7:].numpy(), ref.ray_vec[..., 7:].numpy(),
+                               rtol=0, atol=ABSORB_ATOL)
+
+
+@pytest.mark.parametrize("multi", [True, False], ids=["multi_spec", "total_only"])
 def test_host_damped_f32_matches_jax_f64(host_libs, multi):
     """tests/test_precision.py's damped bounds: positions and k within
     5e-4 of trajectory scale, integrated absorption within 2e-4."""
@@ -183,3 +220,115 @@ def test_host_damped_f32_matches_jax_f64(host_libs, multi):
     tp.assert_scaled_close(got.ray_vec, ref.ray_vec, 5e-4, axis=1, what="f32 trajectory")
     np.testing.assert_allclose(got.end_ray_vec[:, 7].double().numpy(),
                                ref.end_ray_vec[:, 7].numpy(), rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("multi", [True, False], ids=["multi_spec", "total_only"])
+@pytest.mark.parametrize("case", ["k_par_zero", "zero_te", "far_from_resonance"])
+def test_host_damping_never_live_gives_exact_zero(host_libs, case, multi):
+    """Where damping is masked at every evaluation (k_par = 0, a 'zero'
+    electron temperature, or |xi| > 5 throughout) the kernel skips the
+    Dawson sum; the absorption slots must be exactly 0.0, as the plain
+    twin's, and the trajectories equal."""
+    text = jex.SLAB_ECH_DAMPED
+    if case == "k_par_zero":
+        text = text.replace("n_kz_launch=3, rindex_z0=0.1, delta_rindex_z0=0.1",
+                            "n_kz_launch=1, rindex_z0=0.0, delta_rindex_z0=0.0")
+        assert text != jex.SLAB_ECH_DAMPED
+    cfg, params, v0, st, pwr = tp.jax_case(text, multi_spec_damping=multi, nstep_max=120)
+    v0 = np.asarray(v0)[:, :cfg.nv]
+    if case == "far_from_resonance":
+        # the first ray's |xi| falls from 17.6 and passes 5 only after 250 steps
+        v0, st, pwr = v0[:1], np.asarray(st)[:1], np.asarray(pwr)[:1]
+    pcfg, pp, tv0, tst, tpw = tp.to_port(cfg, params, v0, st, pwr)
+    if case == "zero_te":
+        st_ = dataclasses.replace(pcfg.eq_static, t_prof_model=("zero", "constant"))
+        pcfg = dataclasses.replace(pcfg, eq_static=st_)
+    if case == "k_par_zero":
+        assert (tv0[:, 4:6] == 0).all()
+    got = tfused.run_library(host_libs[tfused._variant(pcfg)], pcfg, pp, tv0, tst, tpw)
+    ref = tfused.trace_batch_fused_reference(pcfg, pp, tv0, tst, tpw)
+    assert got.npoints.min() > 20
+    _compare(got, ref, RTOL, trajectory=True)
+    for res in (got, ref):
+        assert (res.ray_vec[..., 7:] == 0.0).all() and (res.end_ray_vec[:, 7:] == 0.0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("text", [jex.SLAB_ECH_90GHZ, jex.SLAB_ECH_DAMPED],
+                         ids=["undamped", "damped"])
+def test_host_derived_run_fields(host_lib, text, dtype):
+    """Every derived field of SlabRun, filled by the library in the kernel's
+    precision and read back through the ctypes mirror: a swapped field
+    order would show here (the size check cannot see it)."""
+    cfg, params, *_ = tp.jax_case(text, combo=tp.KERNEL_COMBOS[2])
+    pcfg, pp = tp.to_port(cfg, params)
+    pp = tree_to(pp, dtype=dtype)
+    run = tfused._run_struct(pcfg, pp, dtype)
+    for n in tfused._DERIVED:
+        assert getattr(run, n) == 0.0, n
+    derive = getattr(host_lib, f"rays_slab_derive_run_{tfused._SUFFIX[dtype]}")
+    derive.argtypes, derive.restype = [ctypes.c_void_p], None
+    derive(ctypes.addressof(run))
+
+    ftype = np.float64 if dtype == torch.float64 else np.float32
+    g = lambda n: ftype(getattr(run, n))
+    species = lambda n: np.array(list(getattr(run, n)), ftype)
+    one, wratio = ftype(1), g("omgrf_ref") / g("omgrf")
+    want = {
+        "inv_k0": one / g("k0"), "inv_k0sq": one / (g("k0") * g("k0")),
+        "inv_omgrf": one / g("omgrf"), "inv_rmaj": one / g("rmaj"),
+        "inv_rmin": one / g("rmin"), "inv_lby": one / g("lby_shear_scale"),
+        "inv_lbz": one / g("lbz_scale"), "inv_ln": one / g("ln_scale"),
+        "inv_lt": one / g("lt_scale"),
+        "gauss_coef": ftype(-3) * g("alphan1") / (g("rmin") * g("rmin")),
+        "half_ds": g("ds") / ftype(2), "sixth_ds": g("ds") / ftype(6),
+        "omgc_coef": species("gamma_coef")[0] * g("omgrf_ref"),
+        "two_over_ms0": ftype(2) / g("ms0"), "inv_clight": one / g("clight"),
+    }
+    assert set(want) == set(tfused._DERIVED)
+    values = [float(v) for v in want.values()]
+    assert len(set(values)) == len(values) and all(np.isfinite(values)), "ambiguous case"
+    for n, w in want.items():
+        assert getattr(run, n) == w, n
+    want_species = {
+        "alpha_w2": species("alpha_coef") * (wratio * wratio),
+        "gamma_w": species("gamma_coef") * wratio,
+        "dn_linear": species("n0s") / g("ln_scale"),
+    }
+    assert set(want_species) == set(tfused._DERIVED_SPECIES)
+    for n, w in want_species.items():
+        np.testing.assert_array_equal(species(n), w, err_msg=n)
+        assert species(n)[:pcfg.ns].all(), n
+    # the fields read from Params are untouched, the ints still in place
+    assert (run.nstep_max, run.time_param) == (pcfg.nstep_max, int(pcfg.ray_param == "time"))
+
+
+def test_count_ops_counts_what_the_rays_need(host_libs):
+    """The operation count behind the kernel's bound: the same trajectories
+    on a counting type.  Undamped, S = 2, time parameter: 2 divisions and 2
+    square roots per evaluation, 3 and 1 more per residual check."""
+    cfg, params, v0, st, pwr = tp.jax_case(nstep_max=40, save_trajectory=False)
+    pcfg, pp, tv0, tst, tpw = tp.to_port(cfg, params, v0, st, pwr)
+    ops, npoints = tfused.count_ops(host_libs[0], pcfg, pp, tv0, tst)
+    assert npoints.tolist() == tfused.run_library(host_libs[0], pcfg, pp, tv0, tst,
+                                                  tpw).npoints.tolist() == [41] * 3
+    steps = 3 * 40
+    assert ops["div"] == 3 * 5 + 11 * steps and ops["sqrt"] == 3 * 3 + 9 * steps
+    assert ops["exp"] == ops["pow"] == 0
+    assert 1300 * steps < ops["add"] + ops["mul"] < 1450 * steps
+
+    # damped: exponentials only where damping is live, and far fewer than
+    # the 168 per evaluation of the whole Dawson sum
+    (cfg, params, v0, st, pwr), _ = _damped_case(True)
+    pcfg, pp, tv0, tst, tpw = tp.to_port(cfg, params, v0, st, pwr)
+    far = dataclasses.replace(pcfg, nstep_max=120)
+    ops_far, n_far = tfused.count_ops(host_libs[2], far, pp, tv0[:1], tst[:1])
+    assert n_far.tolist() == [121] and ops_far["exp"] == 0
+    ops_live, n_live = tfused.count_ops(host_libs[2], pcfg, pp, tv0, tst)
+    evals = 4 * int((n_live - 1).sum()) + 3
+    assert n_live.tolist() == [329, 309, 293]
+    assert 0 < ops_live["exp"] < 0.2 * 169 * evals
+    with pytest.raises(ValueError, match="damping variant"):
+        tfused.count_ops(host_libs[0], pcfg, pp, tv0, tst)
+    with pytest.raises(ValueError, match="float64 CPU"):
+        tfused.count_ops(host_libs[2], pcfg, pp, tv0.float(), tst)

@@ -77,7 +77,7 @@ def _assert_results_match(got, ref, save):
                          ids=["example", "wide_launch"])
 def test_ray_init_matches_jax(text):
     _, _, v0, st, pwr = jex.setup_example(text)
-    _, _, tv0, tst, tpw = tex.setup_example(text)
+    _, _, tv0, tst, tpw = tex.setup_example(text, device="cpu")
     v0 = np.asarray(v0)
     assert tv0.shape == v0.shape and tv0.dtype == torch.float64
     np.testing.assert_allclose(tv0.numpy(), v0, rtol=1e-14, atol=0)
@@ -86,7 +86,7 @@ def test_ray_init_matches_jax(text):
 
 
 def test_wide_launch_drops_candidates():
-    _, _, tv0, _, _ = tex.setup_example(WIDE_LAUNCH)
+    _, _, tv0, _, _ = tex.setup_example(WIDE_LAUNCH, device="cpu")
     assert 0 < tv0.shape[0] < 3 * 2 * 4
 
 
@@ -130,7 +130,7 @@ def test_slab_matches_oracle():
     """The port's slab trajectory against the scalar NumPy transcription of
     the reference, at the tolerance of tests/test_parity.py (200 of the
     example's 500 steps, to keep the scalar oracle quick)."""
-    cfg, params, v0, st, pwr = tex.setup_example(tex.SLAB_ECH_90GHZ)
+    cfg, params, v0, st, pwr = tex.setup_example(tex.SLAB_ECH_90GHZ, device="cpu")
     cfg = dataclasses.replace(cfg, nstep_max=200)
     res = ttrace.trace_batch(cfg, params, v0, st, pwr)
     oc = _oracle_cfg(cfg, params, _slab_eq_fn(cfg, params))
@@ -138,7 +138,7 @@ def test_slab_matches_oracle():
 
 
 def test_trace_rays_cpu_runs_plain_tracer():
-    cfg, params, v0, st, pwr = tex.setup_example(tex.SLAB_ECH_90GHZ)
+    cfg, params, v0, st, pwr = tex.setup_example(tex.SLAB_ECH_90GHZ, device="cpu")
     cfg = dataclasses.replace(cfg, nstep_max=20)
     a = ttrace.trace_rays(cfg, params, v0, st, pwr)
     b = ttrace.trace_batch(cfg, params, v0, st, pwr)
