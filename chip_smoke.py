@@ -15,9 +15,16 @@ script exits non-zero.
 Phases 1-6: the undamped slab ECH 90 GHz main path (32,768 rays x 500
 steps).  Phase 7: the damped example through the kernel.  Phase 8: the
 damped batch, 32,768 rays x 400 steps, f64 and f32, timed.  Phase 9: the
-training step of __graft_entry__.py on one GPU.  The last lines are the
-total wall time, a JSON summary of the kernels and {"ok": true, "device":
-{...}}.  Without a CUDA device it exits non-zero and prints no result.
+training step of __graft_entry__.py on one GPU.  Phases 10-13: the paths
+that have no kernel and run as plain PyTorch on the card, as the JAX
+package runs them as plain XLA operations: the Solovev tokamak fan under
+the adaptive stepper (the example against the same code on the CPU, the
+CLI with its netCDF file, list-directed file and run log, and 32,768 rays
+x 200 outer steps), the slab under the adaptive stepper (32,768 rays x 500
+outer steps, f32 and f64) and the adaptive training step.  The last lines
+are the total wall time, a JSON line of those paths' times, a JSON summary
+of the kernels and {"ok": true, "device": {...}}.  Without a CUDA device
+it exits non-zero and prints no result.
 
 Beside each kernel time stands its bound, the least time the card could
 take for the same work: the larger of the bytes the kernel must move over
@@ -54,6 +61,16 @@ FD_RTOL = 2e-4          # directional derivative vs central difference
 FD_EPS = 1e-7           # relative step of the finite difference
 N_BINS = 32
 N_FILL = 524288         # rays that fill the card (16 x N_RAYS), kernel only
+HOST_RTOL = 1e-7        # plain tracer on the card vs on the CPU, of trajectory scale
+SOLOVEV_MIN_POINTS = 10     # the bars of scripts/validate_all.py for this example
+SOLOVEV_RESID_MAX = 1e-5
+# f32 against f64 at the endpoints, (positions, wavevector), of scale:
+# tests/test_precision.py for the slab, and for the Solovev fan (fixed step:
+# the example's tolerance of 1e-7 is below what float32 can resolve)
+SG_F32_RTOL_SLAB = (1e-3, 5e-4)
+F32_RTOL_SOLOVEV = (1e-3, 2e-2)
+SG_ADJOINT_STEPS = 100  # outer steps of the adaptive training step (bench.py runs 500)
+SG_FD_STEPS = 20        # outer steps of its finite-difference check
 # NVIDIA's H100 SXM data sheet: memory rate, and FP64 / FP32 rates outside
 # the tensor cores (an FMA is two operations)
 HBM_BYTES_PER_S = 3.35e12
@@ -89,6 +106,17 @@ def scaled_err(got, ref, per_ray_axis):
         scale = r.abs().amax(dim=per_ray_axis).clamp_min(1e-12)
         worst = max(worst, float((d.amax(dim=per_ray_axis) / scale).max()))
     return worst
+
+
+def group_err(got, ref):
+    """(positions, wavevector) max over rays of |got - ref| over the
+    reference's scale per ray, at the endpoints."""
+    out = []
+    for sl in (slice(0, 3), slice(3, 6)):
+        r = ref[:, sl].double()
+        scale = r.abs().amax(dim=-1).clamp_min(1e-12)
+        out.append(float(((got[:, sl].double() - r).abs().amax(dim=-1) / scale).max()))
+    return tuple(out)
 
 
 def absorb_err(got, ref):
@@ -153,15 +181,16 @@ def time_kernel(fused_slab, cfg, params, v, st, w, reps=3):
 
 
 def time_plain_and_kernel(fused_slab, cfg, params, v, st, w):
-    """(kernel ms, plain ms, the four runs) in the order plain, kernel,
-    kernel, plain, after a warm-up of each."""
+    """(kernel ms, plain ms, the three runs) in the order kernel, plain,
+    kernel, after a warm-up of each.  The plain twin runs once: it takes
+    thousands of kernel times, and its spread is the host's."""
     short = dataclasses.replace(cfg, nstep_max=5)
     fused_slab.trace_batch_fused_reference(short, params, v, st, w)   # warm-up
     fused_slab.trace_batch_fused(cfg, params, v, st, w)               # warm-up
     plain = lambda: fused_slab.trace_batch_fused_reference(cfg, params, v, st, w)
     kern = lambda: fused_slab.trace_batch_fused(cfg, params, v, st, w)
-    runs = [timed(f)[0] for f in (plain, kern, kern, plain)]
-    return (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2, runs
+    runs = [timed(f)[0] for f in (kern, plain, kern)]
+    return (runs[0] + runs[2]) / 2, runs[1], runs
 
 
 def main():
@@ -282,7 +311,7 @@ def main():
           f"(max abs {abs64:.3e}); f32 kernel vs f64 plain {err32:.3e} of scale, "
           f"max residual {res32:.3e}; npoints {sorted(set(big64.npoints.tolist()))}")
 
-    # phase 5: timing, plain / kernel / kernel / plain, per dtype
+    # phase 5: timing, kernel / plain / kernel, per dtype
     def report_bound(phase, name, ray_ops, n_rays, nv, dt, t_kern):
         bound, by, d = kernel_bound(ray_ops, n_rays, nv, dt)
         expanded = (f"; with exp at {EXP_F64_INSTRUCTIONS} operations "
@@ -303,9 +332,9 @@ def main():
         name = "f32" if dt == f32 else "f64"
         print(f"phase 5 {name} {N_RAYS} rays x {cfg.nstep_max} steps: kernel "
               f"{t_kern:.3f} ms ({N_RAYS / t_kern * 1e3:.0f} rays/s; runs "
-              f"{runs[1]:.3f}, {runs[2]:.3f}), plain {t_plain:.1f} ms "
-              f"({N_RAYS / t_plain * 1e3:.0f} rays/s; runs {runs[0]:.1f}, "
-              f"{runs[3]:.1f}), speedup {t_plain / t_kern:.1f}x on {card}")
+              f"{runs[0]:.3f}, {runs[2]:.3f}), plain {t_plain:.1f} ms "
+              f"({N_RAYS / t_plain * 1e3:.0f} rays/s; one run between the kernel's), "
+              f"speedup {t_plain / t_kern:.1f}x on {card}")
         bounds[dt] = report_bound("phase 5", name, ops_u, N_RAYS, cfg.nv, dt, t_kern)
         t_fill = time_kernel(fused_slab, cfg_b, p_, vf.to(dt), stf, wf.to(dt))
         print(f"phase 5 {name} {N_FILL} rays x {cfg.nstep_max} steps (card filled): kernel "
@@ -399,9 +428,9 @@ def main():
         name = "f32" if dt == f32 else "f64"
         print(f"phase 8 damped {name} {N_RAYS} rays x {cfg_d.nstep_max} steps: kernel "
               f"{t_kern:.3f} ms ({N_RAYS / t_kern * 1e3:.0f} rays/s; runs "
-              f"{runs[1]:.3f}, {runs[2]:.3f}), plain {t_plain:.1f} ms "
-              f"({N_RAYS / t_plain * 1e3:.0f} rays/s; runs {runs[0]:.1f}, "
-              f"{runs[3]:.1f}), speedup {t_plain / t_kern:.1f}x on {card}")
+              f"{runs[0]:.3f}, {runs[2]:.3f}), plain {t_plain:.1f} ms "
+              f"({N_RAYS / t_plain * 1e3:.0f} rays/s; one run between the kernel's), "
+              f"speedup {t_plain / t_kern:.1f}x on {card}")
         damped_bounds[dt] = report_bound("phase 8 damped", name, ops_d, N_RAYS, cfg_d.nv, dt,
                                          t_kern)
         t_fill = time_kernel(fused_slab, cfg_db, p_, vf.to(dt), stf, wf.to(dt))
@@ -491,8 +520,233 @@ def main():
           f"difference {fd:.10e} (eps {FD_EPS} of each leaf), rel diff {fd_rel:.3e} "
           f"(bound {FD_RTOL}); npoints at +-eps {rp.npoints.tolist()}")
 
+    # ---- phases 10-13: the paths without a kernel, plain PyTorch on the card ----
+    from rays_tpu_torch.results.ascii import read_results_ld
+    from rays_tpu_torch.tracing import rk45
+    from rays_tpu_torch.tracing.trace import route
+
+    paths = []
+
+    def plain_run(cfg_, params_, v_, st_, w_):
+        """trace_rays on a config that takes the plain route on the card:
+        (results, ms by CUDA events, (loops, host reads, attempts,
+        rejected) of the substep loop, peak bytes).  No kernel launch."""
+        require(route(cfg_, False, v_.device) == "plain", "expected the plain route")
+        before = fused_slab.LAUNCHES
+        rk45.stats = rk45.SubstepStats()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            ms, res = timed(lambda: trace_rays(cfg_, params_, v_, st_, w_))
+        totals = rk45.stats.totals()
+        rk45.stats = None
+        require(fused_slab.LAUNCHES == before, "the plain route launched the kernel")
+        require(all(t.is_cuda for t in res), "results left the card")
+        return res, ms, totals, torch.cuda.max_memory_allocated()
+
+    def flag_counts(res):
+        codes, counts = torch.unique(res.stop_flag, return_counts=True)
+        return {flag_string(c).strip(): n for c, n in zip(codes.tolist(), counts.tolist())}
+
+    def substep_report(totals, n_rays, n_outer):
+        loops, reads, attempts, rejected = totals
+        return (f"substeps per outer step {loops / n_outer:.3f} lockstep passes, "
+                f"{attempts / n_rays / n_outer:.3f} taken and "
+                f"{rejected / n_rays / n_outer:.4f} rejected per ray; host reads per "
+                f"outer step {reads / n_outer:.3f}")
+
+    # phase 10: the Solovev example, 5 rays x 200 outer steps, SG_ODE, f64
+    cfg_s, params_s, v0_s, st0_s, pwr_s = examples.setup_example(
+        examples.SOLOVEV_ECH_90GHZ, device=dev, dtype=f64)
+    require(cfg_s.ode_solver_name == "SG_ODE" and cfg_s.save_trajectory
+            and cfg_s.nstep_max == 200, "the Solovev example changed")
+    require(not fused_slab.supported(cfg_s), "the gate must refuse the Solovev example")
+    sol, sol_ms, sol_tot, _ = plain_run(cfg_s, params_s, v0_s, st0_s, pwr_s)
+    host = trace_rays(*examples.setup_example(examples.SOLOVEV_ECH_90GHZ, device="cpu",
+                                              dtype=f64))
+    require(torch.equal(sol.npoints.cpu(), host.npoints), "Solovev npoints: card != CPU")
+    require(torch.equal(sol.stop_flag.cpu(), host.stop_flag), "Solovev flags: card != CPU")
+    sol_err = scaled_err(sol.ray_vec.cpu(), host.ray_vec, per_ray_axis=1)
+    sol_res = float(sol.max_residuals.max())
+    sol_npts = sol.npoints.tolist()
+    sol_flags = [flag_string(c) for c in sol.stop_flag.tolist()]
+    require(min(sol_npts) > SOLOVEV_MIN_POINTS, f"Solovev npoints {sol_npts}")
+    require(sol_res < SOLOVEV_RESID_MAX, f"Solovev max residual {sol_res:.3e}")
+    require(sol_err <= HOST_RTOL, f"Solovev card vs CPU {sol_err:.3e} > {HOST_RTOL}")
+    print(f"phase 10 Solovev example f64, SG_ODE, route plain: npoints {sol_npts} flags "
+          f"{sol_flags} max residual {sol_res:.3e}; card vs CPU trajectory err "
+          f"{sol_err:.3e} of scale (bound {HOST_RTOL}); {sol_ms:.1f} ms; "
+          f"{substep_report(sol_tot, len(sol_npts), cfg_s.nstep_max)}")
+
+    # phase 11: the CLI as a user calls it (python -m, the default device) on
+    # the Solovev namelist, in a temporary directory
+    label = cfg_s.run_label
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "solovev_ECH_90GHz.in")
+        with open(path, "w") as f:
+            f.write(examples.SOLOVEV_ECH_90GHZ
+                    + "&ray_results_list\n write_results_list_directed=.true.\n/\n")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        cli = subprocess.run([sys.executable, "-m", "rays_tpu_torch.run", path, "--netcdf"],
+                             cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        require(cli.returncode == 0, f"the Solovev CLI failed:\n{cli.stdout}\n{cli.stderr}")
+        require("device: cuda" in cli.stdout, f"the CLI did not run on the card:\n{cli.stdout}")
+        nc = read_results_nc(os.path.join(tmp, f"run_results.{label}.nc"))
+        ld = read_results_ld(os.path.join(tmp, f"run_results.{label}"))
+        with open(os.path.join(tmp, f"log.RAYS.{label}")) as f:
+            log = f.read()
+    require(nc["npoints"].tolist() == sol_npts, f"CLI netCDF npoints {nc['npoints']}")
+    require(ld["npoints"].tolist() == sol_npts, f"CLI list-directed npoints {ld['npoints']}")
+    require(nc["ray_vec"].shape == ld["ray_vec"].shape == (len(sol_npts), max(sol_npts), 7),
+            "CLI ray_vec shape")
+    require(float(np.abs(ld["ray_vec"] - sol.ray_vec.cpu().numpy()).max()) <= 1e-6
+            * float(sol.ray_vec.abs().max()), "CLI trajectories differ from phase 10's")
+    require("number of rays = 5" in log and "Wall time total" in log, "the run log is short")
+    print(f"phase 11 Solovev CLI: run_results.{label}.nc, run_results.{label} and "
+          f"log.RAYS.{label} ({len(log.splitlines())} lines) read back, npoints "
+          f"{nc['npoints'].tolist()}")
+
+    # phase 12 (a): the Solovev fan at 32,768 rays x 200 outer steps, f64
+    cfg_sb = dataclasses.replace(cfg_s, save_trajectory=False)
+    vs, sts, ws = examples.replicate_rays(v0_s, st0_s, pwr_s, N_RAYS)
+    plain_run(dataclasses.replace(cfg_sb, nstep_max=3), params_s, vs, sts, ws)   # warm-up
+    sb, sb_ms, sb_tot, sb_peak = plain_run(cfg_sb, params_s, vs, sts, ws)
+    n5 = len(sol_npts)
+    require(sb.npoints[:n5].tolist() == sol_npts
+            and sb.stop_flag[:n5].tolist() == sol.stop_flag.tolist(),
+            "the batch's first rays stop elsewhere than the example's")
+    # the jitter in y turns the launch frame by up to 3e-6 without solving
+    # for k again, and the residual starts that far from its floor
+    require(float(sb.max_residuals.max()) < 10 * SOLOVEV_RESID_MAX, "Solovev batch residual")
+    print(f"phase 12 Solovev SG f64 {N_RAYS} rays x {cfg_s.nstep_max} outer steps: "
+          f"{sb_ms:.1f} ms ({N_RAYS / sb_ms * 1e3:.0f} rays/s), "
+          f"{substep_report(sb_tot, N_RAYS, cfg_s.nstep_max)}; peak memory "
+          f"{sb_peak / 2**30:.3f} GiB; npoints {sorted(set(sb.npoints.tolist()))} flags "
+          f"{flag_counts(sb)} max residual {float(sb.max_residuals.max()):.3e} on {card}")
+    paths.append({"name": "solovev_sg_f64", "ms": sb_ms, "rays_per_s": N_RAYS / sb_ms * 1e3})
+    # float32 on the fan: under fixed-step RK4, as tests/test_precision.py
+    # holds it (the example's tolerance 1e-7 is below float32's resolution)
+    cfg_sr = dataclasses.replace(cfg_sb, ode_solver_name="RK4_ODE")
+    params_s32 = tree_to(params_s, dtype=f32)
+    sr64, sr64_ms, _, _ = plain_run(cfg_sr, params_s, vs, sts, ws)
+    sr32, sr32_ms, _, _ = plain_run(cfg_sr, params_s32, vs.to(f32), sts, ws.to(f32))
+    require(torch.equal(sr32.npoints, sr64.npoints) and torch.equal(sr32.stop_flag, sr64.stop_flag),
+            "Solovev RK4 f32 npoints or flags differ from f64")
+    ex, ek = group_err(sr32.end_ray_vec, sr64.end_ray_vec)
+    require(ex <= F32_RTOL_SOLOVEV[0] and ek <= F32_RTOL_SOLOVEV[1],
+            f"Solovev RK4 f32 vs f64: positions {ex:.3e}, k {ek:.3e}")
+    # the adaptive against the fixed-step result, on the rays both traced to the end
+    whole = (sb.npoints == cfg_s.nstep_max + 1) & (sr64.npoints == cfg_s.nstep_max + 1)
+    sg_rk = group_err(sb.end_ray_vec[whole], sr64.end_ray_vec[whole])
+    print(f"phase 12 Solovev RK4 {N_RAYS} rays x {cfg_s.nstep_max} steps: f64 {sr64_ms:.1f} ms, "
+          f"f32 {sr32_ms:.1f} ms; f32 vs f64 endpoints {ex:.3e} (positions), {ek:.3e} (k) of "
+          f"scale (bounds {F32_RTOL_SOLOVEV}); SG f64 vs RK4 f64 on the {int(whole.sum())} rays both "
+          f"trace to the end {sg_rk[0]:.3e}, {sg_rk[1]:.3e}")
+    paths.append({"name": "solovev_rk4_f64", "ms": sr64_ms, "rays_per_s": N_RAYS / sr64_ms * 1e3})
+    paths.append({"name": "solovev_rk4_f32", "ms": sr32_ms, "rays_per_s": N_RAYS / sr32_ms * 1e3})
+    del sb, sr64, sr32, vs, sts, ws
+
+    # phase 12 (b): the slab under SG_ODE, 32,768 rays x 500 outer steps
+    # (bench.py's bench_sg_adaptive), f64 and f32
+    cfg_g, params_g, v0_g, st0_g, pwr_g = examples.setup_example(
+        examples.SLAB_ECH_90GHZ.replace("ode_solver_name='RK4_ODE'", "ode_solver_name='SG_ODE'"),
+        device=dev, dtype=f64)
+    require(cfg_g.ode_solver_name == "SG_ODE" and cfg_g.nstep_max == 500, "slab SG case")
+    ex_g, _, _, _ = plain_run(cfg_g, params_g, v0_g, st0_g, pwr_g)
+    cfg_gb = dataclasses.replace(cfg_g, save_trajectory=False)
+    vg, stg, wg = examples.replicate_rays(v0_g, st0_g, pwr_g, N_RAYS)
+    params_g32 = tree_to(params_g, dtype=f32)
+    slab_sg = {}
+    for dt, p_, v_, w_ in ((f64, params_g, vg, wg), (f32, params_g32, vg.to(f32), wg.to(f32))):
+        name = "f32" if dt == f32 else "f64"
+        res, ms, tot, peak = plain_run(cfg_gb, p_, v_, stg, w_)
+        slab_sg[dt] = res
+        require(res.npoints[:3].tolist() == ex_g.npoints.tolist()
+                and res.stop_flag[:3].tolist() == ex_g.stop_flag.tolist(),
+                f"slab SG {name}: the batch's first rays stop elsewhere than the example's")
+        print(f"phase 12 slab SG {name} {N_RAYS} rays x {cfg_g.nstep_max} outer steps: "
+              f"{ms:.1f} ms ({N_RAYS / ms * 1e3:.0f} rays/s), "
+              f"{substep_report(tot, N_RAYS, cfg_g.nstep_max)}; peak memory "
+              f"{peak / 2**30:.3f} GiB; npoints {sorted(set(res.npoints.tolist()))} max "
+              f"residual {float(res.max_residuals.max()):.3e} on {card}")
+        paths.append({"name": f"slab_sg_{name}", "ms": ms, "rays_per_s": N_RAYS / ms * 1e3})
+    require(torch.equal(slab_sg[f32].npoints, slab_sg[f64].npoints), "slab SG f32 npoints")
+    ex, ek = group_err(slab_sg[f32].end_ray_vec, slab_sg[f64].end_ray_vec)
+    require(ex <= SG_F32_RTOL_SLAB[0] and ek <= SG_F32_RTOL_SLAB[1],
+            f"slab SG f32 vs f64: positions {ex:.3e}, k {ek:.3e}")
+    sg_k = group_err(slab_sg[f64].end_ray_vec, big64.end_ray_vec)
+    print(f"phase 12 slab SG f32 vs f64 endpoints {ex:.3e} (positions), {ek:.3e} (k) of scale "
+          f"(bounds {SG_F32_RTOL_SLAB}); SG f64 vs the RK4 kernel's f64 {sg_k[0]:.3e}, "
+          f"{sg_k[1]:.3e} (tolerance 1e-4 requested)")
+    del slab_sg
+
+    # phase 13: the adaptive training step (bench.py's SG adjoint): the
+    # fixed budget of 2 masked substeps, forward and backward, f64
+    cfg_a = dataclasses.replace(cfg_gb, sg_scan_substeps=2, nstep_max=SG_ADJOINT_STEPS)
+
+    def sg_loss(res):
+        return (res.end_ray_vec[:, 0:3] ** 2 * res.initial_ray_power[:, None]).sum()
+
+    def sg_train_step(cfg_, v, st, w):
+        pg = tree_map(lambda t: t.detach().clone().requires_grad_(True), params_g)
+        require(route(cfg_, True, v.device) == "plain", "the adjoint takes the plain route")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = trace_rays(cfg_, pg, v, st, w)
+        loss = sg_loss(res)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, tree_leaves(pg), allow_unused=True,
+                                    materialize_grads=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return (loss.detach(), res, grads, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                torch.cuda.max_memory_allocated())
+
+    loss_a, res_a, grads_a, fwd_a, bwd_a, peak_a = sg_train_step(cfg_a, vg, stg, wg)
+    require(int(res_a.npoints.min()) == SG_ADJOINT_STEPS + 1 == int(res_a.npoints.max()),
+            "the budget of 2 substeps did not suffice")
+    bad = [i for i, g in enumerate(grads_a) if not bool(torch.isfinite(g).all())]
+    require(not bad, f"non-finite SG gradients in leaves {bad}")
+    print(f"phase 13 SG training step {N_RAYS} rays x {SG_ADJOINT_STEPS} outer steps f64 "
+          f"(sg_scan_substeps 2, summaries only): loss {float(loss_a):.12e}, forward "
+          f"{fwd_a:.1f} ms, backward {bwd_a:.1f} ms, peak memory {peak_a / 2**30:.2f} GiB; "
+          f"{len(grads_a)} leaf gradients all finite on {card}")
+    paths.append({"name": "slab_sg_training_step_f64", "ms": fwd_a + bwd_a, "forward_ms": fwd_a,
+                  "backward_ms": bwd_a, "outer_steps": SG_ADJOINT_STEPS,
+                  "rays_per_s": N_RAYS / (fwd_a + bwd_a) * 1e3})
+    del res_a, grads_a
+
+    cfg_f = dataclasses.replace(cfg_a, nstep_max=SG_FD_STEPS)
+    loss_f, _, grads_f, _, _, _ = sg_train_step(cfg_f, v0_g, st0_g, pwr_g)
+    rng = np.random.default_rng(3)
+    dirs_g = type(params_g)(*(tree_map(
+        (lambda t: t.abs() * torch.as_tensor(rng.standard_normal(tuple(t.shape)), dtype=f64,
+                                             device=dev))
+        if name in ("species", "rf", "eq") else torch.zeros_like, sub)
+        for name, sub in zip(params_g._fields, params_g)))
+    dd_sg = sum(float((g * d).sum()) for g, d in zip(grads_f, tree_leaves(dirs_g)))
+    fd_runs = {}
+    for sgn in (1.0, -1.0):
+        p_ = tree_map(lambda p, d: p + sgn * FD_EPS * d, params_g, dirs_g)
+        with torch.no_grad():
+            r_ = trace_rays(cfg_f, p_, v0_g, st0_g, pwr_g)
+        fd_runs[sgn] = (float(sg_loss(r_)), r_.npoints.tolist())
+    require(fd_runs[1.0][1] == fd_runs[-1.0][1] == [SG_FD_STEPS + 1] * 3,
+            f"npoints at +-eps {fd_runs[1.0][1]} {fd_runs[-1.0][1]}")
+    fd_sg = (fd_runs[1.0][0] - fd_runs[-1.0][0]) / (2 * FD_EPS)
+    fd_sg_rel = abs(dd_sg - fd_sg) / abs(fd_sg)
+    require(fd_sg_rel <= FD_RTOL,
+            f"SG directional derivative {dd_sg!r} vs FD {fd_sg!r}: {fd_sg_rel:.3e}")
+    print(f"phase 13 SG gradient check, 3 rays x {SG_FD_STEPS} outer steps: loss "
+          f"{float(loss_f):.12e}, directional derivative {dd_sg:.10e} vs central difference "
+          f"{fd_sg:.10e} (eps {FD_EPS} of each leaf), rel diff {fd_sg_rel:.3e} (bound {FD_RTOL})")
+
     total_s = time.perf_counter() - t_start
     print(f"total wall time {total_s:.1f} s")
+    print(json.dumps({"paths": paths}))
     kernels = []
     for name, launches, err, (t_kern, t_plain), (bound, bound_by) in (
             ("slab_rk4", main_launches, abs64, times[f64], bounds[f64]),

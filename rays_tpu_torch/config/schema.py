@@ -1,8 +1,8 @@
 """Build (Config, Params) from a parsed namelist dict
 (``rays_tpu.config.schema``).
 
-Ports the species, rf, ode, limits, slab and simple_slab parts of
-``from_namelist``.  Coefficients are computed on the host in numpy
+Ports the species, rf, ode, limits, slab, solovev and the two matching
+ray-init parts of ``from_namelist``.  Coefficients are computed on the host in numpy
 float64, exactly as the JAX package computes them, and only then become
 tensors of the requested device and dtype.  Other equilibrium and
 ray-init models raise ``NotImplementedError`` naming the ROADMAP item
@@ -21,17 +21,17 @@ from rays_tpu_torch.core.types import (
     Config, Limits, OdeParams, Params, RFParams, SpeciesParams,
 )
 from rays_tpu_torch.models import slab as slab_mod
+from rays_tpu_torch.models import solovev as solovev_mod
 from rays_tpu_torch.rayinit import slab as slab_init_mod
+from rays_tpu_torch.rayinit import solovev as solovev_init_mod
 
 NSPEC0 = 5  # max ion species (species_m.f90:25)
 
 _NOT_PORTED_EQ = {
-    "solovev": "ROADMAP A12",
     "axisym_toroid": "ROADMAP A13",
     "multiple_mirror": "ROADMAP A13",
 }
 _NOT_PORTED_INIT = {
-    "solovev_ray_init_nphi_ntheta": "ROADMAP A12",
     "axisym_toroid_ray_init_R_Z_nphi_ntheta": "ROADMAP A13",
     "one_ray_init_XYZ_n_direction": "ROADMAP A13",
     "one_ray_init_XYZ_k_direction": "ROADMAP A13",
@@ -170,6 +170,25 @@ def _slab_from_namelist(nml, ns):
     return static, p
 
 
+def _solovev_from_namelist(nml, ns):
+    g = nml.get("solovev_eq_list", {})
+    static = solovev_mod.SolovevStatic(
+        dens_prof_model=_get(g, "dens_prof_model", "parabolic"),
+        t_prof_model=tuple(_strlist(g, "t_prof_model", ns, "zero")),
+    )
+    p = solovev_mod.SolovevParams(
+        rmaj=_get(g, "rmaj", 1.0), kappa=_get(g, "kappa", 1.0),
+        bphi0=_get(g, "bphi0", 1.0), iota0=_get(g, "iota0", 0.5),
+        outer_bound=_get(g, "outer_bound", 1.3),
+        alphan1=_get(g, "alphan1", 1.0), alphan2=_get(g, "alphan2", 2.0),
+        alphat1=_arr(g, "alphat1", ns, 1.0),
+        alphat2=_arr(g, "alphat2", ns, 2.0),
+        box_rmin=_get(g, "box_rmin", 0.0), box_rmax=_get(g, "box_rmax", 10.0),
+        box_zmin=_get(g, "box_zmin", -10.0), box_zmax=_get(g, "box_zmax", 10.0),
+    )
+    return static, p
+
+
 def _slab_init_from_namelist(nml):
     g = nml.get("simple_slab_ray_init_list", {})
     return slab_init_mod.SlabInit(
@@ -191,6 +210,24 @@ def _slab_init_from_namelist(nml):
     )
 
 
+def _solovev_init_from_namelist(nml):
+    g = nml.get("solovev_ray_init_nphi_ktheta_list", {})
+    return solovev_init_mod.SolovevInit(
+        n_r_launch=int(_get(g, "n_r_launch", 1)),
+        r_launch0=float(_get(g, "r_launch0", 0.0)),
+        dr_launch=float(_get(g, "dr_launch", 0.0)),
+        n_theta_launch=int(_get(g, "n_theta_launch", 1)),
+        theta_launch0=float(_get(g, "theta_launch0", 0.0)),
+        dtheta_launch=float(_get(g, "dtheta_launch", 0.0)),
+        n_rindex_theta=int(_get(g, "n_rindex_theta", 1)),
+        rindex_theta0=float(_get(g, "rindex_theta0", 0.0)),
+        delta_rindex_theta=float(_get(g, "delta_rindex_theta", 0.0)),
+        n_rindex_phi=int(_get(g, "n_rindex_phi", 1)),
+        rindex_phi0=float(_get(g, "rindex_phi0", 0.0)),
+        delta_rindex_phi=float(_get(g, "delta_rindex_phi", 0.0)),
+    )
+
+
 def from_namelist(nml: dict, input_dir=".", device="cpu", dtype=torch.float64):
     """Parsed namelist dict -> (Config, Params), Params on ``device`` in
     ``dtype``.  ``input_dir`` is accepted for the JAX signature; no ported
@@ -209,20 +246,26 @@ def from_namelist(nml: dict, input_dir=".", device="cpu", dtype=torch.float64):
     ns = nspec + 1
 
     equilib_model = _get(eqg, "equilib_model", "slab")
-    if equilib_model != "slab":
+    if equilib_model == "slab":
+        eq_static, eq_params = _slab_from_namelist(nml, ns)
+    elif equilib_model == "solovev":
+        eq_static, eq_params = _solovev_from_namelist(nml, ns)
+    else:
         where = _NOT_PORTED_EQ.get(equilib_model)
         if where is None:
             raise NotImplementedError(f"equilib_model {equilib_model}")
         raise NotImplementedError(
             f"equilib_model {equilib_model!r} is not ported yet ({where})")
-    eq_static, eq_params = _slab_from_namelist(nml, ns)
 
     ray_init_model = _get(ri, "ray_init_model", "simple_slab")
-    if ray_init_model != "simple_slab":
+    if ray_init_model == "simple_slab":
+        rayinit_static = _slab_init_from_namelist(nml)
+    elif ray_init_model == "solovev_ray_init_nphi_ntheta":
+        rayinit_static = _solovev_init_from_namelist(nml)
+    else:
         where = _NOT_PORTED_INIT.get(ray_init_model, "not in the ROADMAP")
         raise NotImplementedError(
             f"ray_init_model {ray_init_model!r} is not ported yet ({where})")
-    rayinit_static = _slab_init_from_namelist(nml)
 
     cfg = Config(
         run_label=str(_get(diag, "run_label", "run")),

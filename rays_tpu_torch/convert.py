@@ -13,8 +13,9 @@ import numpy as np
 import torch
 
 from rays_tpu_torch.core import types
-from rays_tpu_torch.models import slab
+from rays_tpu_torch.models import slab, solovev
 from rays_tpu_torch.rayinit import slab as slab_init
+from rays_tpu_torch.rayinit import solovev as solovev_init
 
 _PARAM_TYPES = {
     "Params": types.Params,
@@ -23,7 +24,11 @@ _PARAM_TYPES = {
     "OdeParams": types.OdeParams,
     "Limits": types.Limits,
     "SlabParams": slab.SlabParams,
+    "SolovevParams": solovev.SolovevParams,
 }
+_EQ_STATIC = {"slab": slab.SlabStatic, "solovev": solovev.SolovevStatic}
+_INIT_STATIC = {"simple_slab": slab_init.SlabInit,
+                "solovev_ray_init_nphi_ntheta": solovev_init.SolovevInit}
 
 
 def params_from_numpy(tree, device="cpu", dtype=torch.float64):
@@ -46,14 +51,16 @@ def config_from_dict(d):
     JAX-only ``fused_kernel`` switch is dropped."""
     d = dict(d)
     d.pop("fused_kernel", None)
-    if d.get("equilib_model") != "slab":
+    if d.get("equilib_model") not in _EQ_STATIC:
         raise NotImplementedError(
-            f"equilib_model {d.get('equilib_model')!r} is not ported yet")
-    if d.get("ray_init_model") != "simple_slab":
+            f"equilib_model {d.get('equilib_model')!r} is not ported yet "
+            "(ROADMAP A13)")
+    if d.get("ray_init_model") not in _INIT_STATIC:
         raise NotImplementedError(
-            f"ray_init_model {d.get('ray_init_model')!r} is not ported yet")
+            f"ray_init_model {d.get('ray_init_model')!r} is not ported yet "
+            "(ROADMAP A13)")
     eq = dict(d["eq_static"])
     eq["t_prof_model"] = tuple(eq["t_prof_model"])
-    d["eq_static"] = slab.SlabStatic(**eq)
-    d["rayinit_static"] = slab_init.SlabInit(**d["rayinit_static"])
+    d["eq_static"] = _EQ_STATIC[d["equilib_model"]](**eq)
+    d["rayinit_static"] = _INIT_STATIC[d["ray_init_model"]](**d["rayinit_static"])
     return types.Config(**d)

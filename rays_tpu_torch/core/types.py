@@ -70,8 +70,8 @@ class Limits(NamedTuple):
 
 class Params(NamedTuple):
     """The full parameter bundle for a run.  ``eq`` is a model-specific
-    NamedTuple (``models.slab.SlabParams``) selected by
-    ``Config.equilib_model``."""
+    NamedTuple (``models.slab.SlabParams``, ``models.solovev.SolovevParams``)
+    selected by ``Config.equilib_model``."""
 
     species: SpeciesParams
     rf: RFParams
@@ -103,7 +103,7 @@ class Config:
     ray_param: str = "arcl"        # arcl | time
 
     # equilibrium
-    equilib_model: str = "slab"
+    equilib_model: str = "slab"    # slab | solovev
     eq_static: Any = None          # model-specific frozen dataclass
 
     # damping
@@ -164,6 +164,13 @@ class Config:
         """Index of the total-absorption slot in v, or -1 if absent."""
         return 7 if self.damping_model != "no_damp" else -1
 
+    @property
+    def grad_diag_slot(self) -> int:
+        """Index of the first gradient-diagnostic slot in v, or -1."""
+        if not self.integrate_eq_gradients:
+            return -1
+        return self.nv - 5
+
 
 def tree_to(tree, device=None, dtype=None):
     """Move every floating-point tensor leaf of a NamedTuple tree to
@@ -191,3 +198,11 @@ def tree_leaves(tree):
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return [leaf for x in tree for leaf in tree_leaves(x)]
     return [tree]
+
+
+def needs_grad(params, *tensors) -> bool:
+    """Whether gradients are asked for: grad mode is on and a Params leaf
+    or one of ``tensors`` requires grad."""
+    return torch.is_grad_enabled() and (
+        any(t.requires_grad for t in tensors)
+        or any(leaf.requires_grad for leaf in tree_leaves(params)))

@@ -1,8 +1,9 @@
 """Built-in example configurations (``rays_tpu.examples``): copies of the
-reference's committed slab inputs, so tests, the CLI and ``chip_smoke.py``
-need no external files.  ``SLAB_ECH_90GHZ`` mirrors
-examples_RAYS/ECH_90GHz_slab/slab_ECH_90GHz_case_1.in, the main path of
-this port.  The namelist texts are identical to the JAX package's.
+reference's committed example inputs, so tests, the CLI and
+``chip_smoke.py`` need no external files.  ``SLAB_ECH_90GHZ`` mirrors
+examples_RAYS/ECH_90GHz_slab/slab_ECH_90GHz_case_1.in; ``SOLOVEV_ECH_90GHZ``
+is the Solovev tokamak ECH fan, traced with the adaptive stepper.  The
+namelist texts are identical to the JAX package's.
 """
 
 import numpy as np
@@ -54,6 +55,52 @@ SLAB_ECH_90GHZ = """
 /
 """
 
+SOLOVEV_ECH_90GHZ = """
+&diagnostics_list
+ verbosity=0,
+ run_description='ECH in Solovev model tokamak 90GHz'
+ run_label='solovev_demo'
+ integrate_eq_gradients=.false.
+/
+&species_list
+ n0=8.0e19,
+ spec_name(0)='electron', spec_model(0)='cold', t0s(0)=1.0e3,
+ spec_name(1)='deuterium', spec_model(1)='cold', t0s(1)=1.0e2, eta(1)=1.
+/
+&rf_list
+ frf=90.e9, k0_sign=1, wave_mode='minus', ray_dispersion_model='cold',
+ ray_param='arcl', dispersion_resid_limit=0.1
+/
+&damping_list
+ damping_model='no_damp'
+/
+&equilibrium_list
+ equilib_model='solovev'
+/
+&solovev_eq_list
+ rmaj=1.2, outer_bound=1.55, kappa=1.5, bphi0=2.2, iota0=0.3,
+ dens_prof_model='parabolic', alphan1=1.0, alphan2=2.0,
+ t_prof_model=2*'parabolic', alphat1=2*1.0, alphat2=2*2.0,
+ box_rmin=0.2, box_rmax=2.5, box_zmin=-2.0, box_zmax=2.0
+/
+&ray_init_list
+ ray_init_model='solovev_ray_init_nphi_ntheta', nray_max=100
+/
+&solovev_ray_init_nphi_ktheta_list
+ n_r_launch=1, r_launch0=0.3, dr_launch=0.0,
+ n_theta_launch=4, theta_launch0=0.0, dtheta_launch=0.7854,
+ n_rindex_theta=2, rindex_theta0=0.0, delta_rindex_theta=0.2,
+ n_rindex_phi=1, rindex_phi0=0.3, delta_rindex_phi=0.0
+/
+&ode_list
+ ode_solver_name='SG_ODE', nstep_max=200, ds=2.e-3, s_max=4.0
+/
+&SG_ode_list
+ rel_err0=1.e-7, abs_err0=1.e-7, SG_error_limit=0.1
+/
+"""
+
+
 SLAB_ECH_DAMPED = """
 &diagnostics_list
  verbosity=0,
@@ -97,7 +144,6 @@ SLAB_ECH_DAMPED = """
 """
 
 
-
 def setup_example(text=SLAB_ECH_90GHZ, device="cuda", dtype=torch.float64):
     """Namelist text -> (cfg, params, v0, status0, pwr_wt) on ``device`` in
     ``dtype``.  Like ``run.setup`` it puts the run on the card unless asked
@@ -114,7 +160,7 @@ def setup_example(text=SLAB_ECH_90GHZ, device="cuda", dtype=torch.float64):
 
 def replicate_rays(v0, status0, pwr, n_total, jitter=1e-6):
     """Tile a small ray set up to n_total rays with tiny launch-point jitter
-    in y (the slab is uniform in y), for throughput runs at production
+    in y, for throughput runs at production
     batch sizes.  The jitter is drawn with numpy from a fixed seed, so the
     rays equal the JAX package's ``replicate_rays`` rays."""
     B = v0.shape[0]

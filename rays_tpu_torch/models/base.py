@@ -8,7 +8,8 @@ A model module provides, on a batch of points x (B, 3):
   geom_err(static, params, x) -> (B,) int32 StopCode, geometry only;
   err(static, params, species, x) -> geometry + positivity.
 
-Only the slab is ported; the other geometries are ROADMAP A12 and A13.
+The slab and the Solovev tokamak are ported; the spline geometries are
+ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -25,9 +26,13 @@ def get_eq_model(name: str):
         from rays_tpu_torch.models import slab
 
         return slab
+    if name == "solovev":
+        from rays_tpu_torch.models import solovev
+
+        return solovev
     raise NotImplementedError(
-        f"equilib_model {name!r} is not ported yet (ROADMAP A12: solovev; "
-        f"A13: axisym_toroid, multiple_mirror)")
+        f"equilib_model {name!r} is not ported yet (ROADMAP A13: "
+        f"axisym_toroid, multiple_mirror)")
 
 
 def eq_fields(cfg, params, x):

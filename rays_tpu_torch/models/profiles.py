@@ -30,3 +30,17 @@ def parabolic(rho, f_min, alpha1, alpha2):
     f = torch.where(clipped, f_min * torch.ones_like(f), f)
     fp = torch.where(clipped, torch.zeros_like(fp), fp)
     return f, fp
+
+
+def parabolic_psi(psiN, alpha1, alpha2):
+    """Parabolic-in-psiN profile of the toroidal equilibria:
+    f = (1 - psiN^alpha2)^alpha1 for psiN < 1 else 0, with df/dpsiN, which
+    is an exact zero outside (reference solovev_eq_m.f90:218-225)."""
+    tiny = constants.SAFE_TINY
+    p = psiN.clamp(tiny, 1.0)
+    base = (1.0 - p**alpha2).clamp_min(tiny)
+    f_in = base**alpha1
+    dd = -alpha1 * alpha2 * p ** (alpha2 - 1.0) * base ** (alpha1 - 1.0)
+    inside = psiN < 1.0
+    return (torch.where(inside, f_in, torch.zeros_like(f_in)),
+            torch.where(inside, dd, torch.zeros_like(dd)))

@@ -1,13 +1,13 @@
 """Power-deposition profiles (``rays_tpu.post.deposition``; reference
 post_process_lib/deposition_profiles_m.f90), batched over rays.
 
-A per-geometry registry of profiles ('Ptotal_x' for the slab), a
-coordinate for each trajectory point, the absorbed power per point
-(initial_ray_power * v[:, damping_slot], frozen past npoints so that the
-tail adds nothing), the uniform-grid binning of ``ops/binning.py`` for
-every ray, then the sum over rays (:229-293).  Only 'Ptotal_x' is ported;
-the toroidal and mirror coordinates come with their geometries (ROADMAP
-A12, A13).
+A per-geometry registry of profiles ('Ptotal_x' for the slab,
+'Ptotal_psi' for the Solovev tokamak), a coordinate for each trajectory
+point, the absorbed power per point (initial_ray_power *
+v[:, damping_slot], frozen past npoints so that the tail adds nothing),
+the uniform-grid binning of ``ops/binning.py`` for every ray, then the sum
+over rays (:229-293).  The coordinates of the
+spline geometries come with those geometries (ROADMAP A13).
 
 The binning holds a (rays, segments, bins) tensor: 3.4 GB at float64 for
 32,768 rays x 400 steps x 32 bins, several of which autograd would keep.
@@ -38,12 +38,17 @@ class DepositionProfile(NamedTuple):
     profile: Any   # (n_bins,) summed over rays
 
 
-def _coordinate_fn(cfg, which: str):
+def _coordinate_fn(cfg, params, which: str):
     """Trajectory positions (..., 3) -> profile coordinate (...)."""
     if which == "Ptotal_x":
         return lambda r: r[..., 0]
-    # (profile, the geometries that define it, each with its ROADMAP item)
-    owners = {"Ptotal_psi": {"solovev": "A12", "axisym_toroid": "A13"},
+    if which == "Ptotal_psi" and cfg.equilib_model == "solovev":
+        from rays_tpu_torch.models import solovev
+
+        return lambda r: solovev.psi(params.eq, r)[2]
+    # (profile, the unported geometries that define it, each with its
+    # ROADMAP item)
+    owners = {"Ptotal_psi": {"axisym_toroid": "A13"},
               "Ptotal_rho": {"axisym_toroid": "A13"},
               "Ptotal_AphiN": {"multiple_mirror": "A13"}}
     if which not in owners:
@@ -62,7 +67,7 @@ def calculate_deposition_profile(cfg, params, results, which: str,
     (deposition_profiles_m.f90:229-293)."""
     if cfg.damping_slot < 0:
         raise ValueError("deposition profiles need a damping model")
-    coord = _coordinate_fn(cfg, which)
+    coord = _coordinate_fn(cfg, params, which)
     slot = cfg.damping_slot
 
     ray_vec = results.ray_vec           # (B, n_pts, nv)

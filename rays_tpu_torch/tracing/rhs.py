@@ -5,12 +5,16 @@ State layout in the ODE vector v (B, nv) (ode_m.f90:158-175):
 
     v[:, 0:3] = x,  v[:, 3:6] = k,  v[:, 6] = integrated ray parameter,
     [v[:, 7] = total absorption]  [v[:, 8:8+S] = per-species absorption]
+    [5 gradient-diagnostic integrals]
 
 The equilibrium is evaluated once per call; the statuses are the
 first-triggered StopCode in the reference's order (equilibrium error ->
-infinite Vg -> ray stalled, eqn_ray.f90:89-169).  The
-equilibrium-gradient diagnostics and the autodiff derivative path are a
-later slice (ROADMAP A14) and raise here.
+infinite Vg -> ray stalled, eqn_ray.f90:89-169).  Two derivative paths
+reproduce the reference's ray_deriv_name A/B (eqn_ray.f90:106-123):
+'cold', the closed-form chain rule of the pole-free D (deriv_cold.py), and
+'autodiff', reverse-mode autograd of ``dispersion.dispersion_D``, which
+evaluates the equilibrium again inside the differentiated function and is
+kept as the independent check.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from rays_tpu_torch import constants
+from rays_tpu_torch.core.types import needs_grad
 from rays_tpu_torch.models import base
 from rays_tpu_torch.tracing.stop import StopCode
 from rays_tpu_torch.wave import damping as damping_mod
@@ -26,17 +31,32 @@ from rays_tpu_torch.wave import dispersion
 
 
 def check_ported(cfg):
-    """Raise for the RHS options that later slices port."""
-    if cfg.integrate_eq_gradients:
-        raise NotImplementedError(
-            "integrate_eq_gradients is not ported yet (ROADMAP A14)")
-    if cfg.ray_deriv_name != "cold":
-        # the JAX package's autodiff path reads an undefined name
-        # (ROADMAP C1); its port is ROADMAP A14
-        raise NotImplementedError(
-            f"ray_deriv_name {cfg.ray_deriv_name!r} is not ported yet (ROADMAP A14)")
+    """Raise for an option the RHS does not know."""
     if cfg.ray_param not in ("arcl", "time"):
         raise ValueError(f"eqn_ray: invalid ray_param {cfg.ray_param}")
+    if cfg.ray_deriv_name not in ("cold", "autodiff"):
+        raise ValueError(f"eqn_ray: invalid ray_deriv_name {cfg.ray_deriv_name}")
+
+
+def _deriv_autodiff(cfg, params, v):
+    """(dD/dx, dD/dk, dD/domega) per ray from one reverse pass through
+    the scalar D.  The rays are independent, so the gradient of the sum
+    over rays holds each ray's own derivatives; omega becomes one value
+    per ray to receive them.  ``torch.autograd.grad`` is used and not
+    ``torch.func.grad``: the latter refuses to run under the tracer's
+    per-step checkpoint.  Where the caller asks for gradients, the result
+    stays differentiable (the adjoint takes a second derivative of D)."""
+    wants = needs_grad(params, v)
+
+    def leaf(t):
+        return t if t.requires_grad else t.detach().requires_grad_(True)
+
+    with torch.enable_grad():
+        x, kvec = leaf(v[:, 0:3]), leaf(v[:, 3:6])
+        omega = leaf(params.rf.omgrf.expand(v.shape[0]))
+        total = dispersion.dispersion_D(cfg, params, x, kvec, omega).sum()
+        grads = torch.autograd.grad(total, (x, kvec, omega), create_graph=wants)
+    return grads if wants else tuple(g.detach() for g in grads)
 
 
 def eqn_ray(cfg, params, s, v):
@@ -52,7 +72,10 @@ def _eqn_ray_from_eq(cfg, params, s, v, eq):
     omgrf, k0 = params.rf.omgrf, params.rf.k0
     tiny = constants.SAFE_TINY
 
-    dddx, dddk, dddw = deriv_cold_mod.deriv_cold(eq, kvec / k0, omgrf, k0)
+    if cfg.ray_deriv_name == "autodiff":
+        dddx, dddk, dddw = _deriv_autodiff(cfg, params, v)
+    else:
+        dddx, dddk, dddw = deriv_cold_mod.deriv_cold(eq, kvec / k0, omgrf, k0)
 
     # group velocity (eqn_ray.f90:131-144)
     safe_dddw = torch.where(dddw == 0.0, torch.ones_like(dddw), dddw)[:, None]
@@ -73,14 +96,23 @@ def _eqn_ray_from_eq(cfg, params, s, v, eq):
         dsd_ray_param = torch.sqrt((dxds**2).sum(-1))   # |vg|
 
     parts = [dxds, dkds, dsd_ray_param[:, None]]
-    if cfg.damping_model != "no_damp":
+    if cfg.damping_model != "no_damp" or cfg.integrate_eq_gradients:
         vg = -dddk / safe_dddw
+    if cfg.damping_model != "no_damp":
         ksi, ki = damping_mod.damping(cfg, params, eq, v[:, 0:6], vg)
         # dP/ds = dsd 2 ki (1 - P_total), P_total = v[:, 7] (eqn_ray.f90:196-213)
         one_minus_p = 1.0 - v[:, 7]
         parts.append((dsd_ray_param * 2.0 * ki * one_minus_p)[:, None])
         if cfg.multi_spec_damping:
             parts.append(dsd_ray_param[:, None] * 2.0 * ksi * one_minus_p[:, None])
+    if cfg.integrate_eq_gradients:
+        # d/ds of (B, ne, Te) along the ray (eqn_ray.f90:217-229)
+        vg0 = torch.sqrt((vg**2).sum(-1))
+        vg_unit = vg / vg0.clamp_min(tiny)[:, None]
+        dsd = dsd_ray_param[:, None]
+        parts.append(dsd * torch.einsum("bi,bij->bj", vg_unit, eq.gradb))
+        parts.append(dsd * (vg_unit * eq.gradns[:, 0]).sum(-1, keepdim=True))
+        parts.append(dsd * (vg_unit * eq.gradts[:, 0]).sum(-1, keepdim=True))
     dvds = torch.cat(parts, dim=1)
 
     status = torch.zeros_like(eq.err)

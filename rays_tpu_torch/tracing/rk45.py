@@ -1,0 +1,249 @@
+"""Adaptive embedded Runge-Kutta (Dormand-Prince 5(4)) over one outer step,
+batched over rays (``rays_tpu.tracing.rk45``).
+
+The reference's adaptive path is the Shampine-Gordon Adams PECE suite
+(ode_RAYS.f90, SG_ode_m.f90); as in the JAX package its place is taken by
+an embedded one-step pair with PI step-size control: the same contract
+(advance exactly ds to tolerance), O(1) state per ray.  Error control
+follows the SG convention: the mixed test err_i / (abs_err + rel_err*|v_i|),
+aborting with ODE_TOTAL_ERROR when the step size underflows or the substep
+budget is exhausted (SG_ode_m.f90:89-159).
+
+The JAX package writes the substep loop for one ray (``lax.while_loop``)
+and batches it with ``vmap``.  Here the batch is explicit: the loop runs
+while any ray's condition holds, and every update is a ``torch.where`` on
+the ray's own condition, so a ray keeps its whole carry once it is done and
+gets exactly the result it gets when traced alone.  On a CUDA device the
+``any()`` is one host read per substep.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rays_tpu_torch import constants
+from rays_tpu_torch.core.types import needs_grad
+from rays_tpu_torch.tracing import rhs as rhs_mod
+from rays_tpu_torch.tracing.stop import StopCode
+
+# Dormand-Prince 5(4) tableau
+_C = (0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0)
+_A = (
+    (),
+    (1 / 5,),
+    (3 / 40, 9 / 40),
+    (44 / 45, -56 / 15, 32 / 9),
+    (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+    (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+    (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84),
+)
+_B5 = (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0)
+_B4 = (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200, 187 / 2100, 1 / 40)
+
+_SAFETY = 0.9
+_MIN_FACTOR = 0.2
+_MAX_FACTOR = 5.0
+
+
+class SubstepStats:
+    """What the substep loop did since ``reset()``: ``loops`` passes of the
+    lockstep loop and ``host_reads`` of its condition (Python ints),
+    ``attempts`` and ``rejected`` substeps summed over rays (kept on the
+    rays' device; ``totals()`` reads them once)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.loops = 0
+        self.host_reads = 0
+        self.attempts = None
+        self.rejected = None
+
+    def add(self, live, accept):
+        a, r = live.sum(), (live & ~accept).sum()
+        self.attempts = a if self.attempts is None else self.attempts + a
+        self.rejected = r if self.rejected is None else self.rejected + r
+
+    def totals(self):
+        """(loops, host_reads, attempts, rejected) as Python ints."""
+        return (self.loops, self.host_reads,
+                0 if self.attempts is None else int(self.attempts),
+                0 if self.rejected is None else int(self.rejected))
+
+
+# set to a SubstepStats to have the stepper count into it (chip_smoke.py
+# does); None, the default, adds nothing to the loop
+stats = None
+
+
+def _dopri_step(f, f_check, t, v, h, k1, k1_st):
+    """One trial DOPRI5 step with the first stage supplied (FSAL: DP5's
+    7th stage is evaluated at (t+h, v5), so an accepted step's k7 is the
+    next step's k1: 6 fresh RHS evaluations per substep, not 7).  The 7th
+    stage uses ``f_check`` (the RHS and check_save from one equilibrium
+    evaluation) so the step's endpoint check rides the same evaluation.
+    t, h: (B,); v, k1: (B, nv).  Returns (v5, dv5, err_vec, status, k7,
+    k7_status, resid, check_status) with v5 = v + dv5."""
+    hc = h[:, None]
+    ks = [k1]
+    status = k1_st
+    for i in range(1, 6):
+        vi = v
+        for j, aij in enumerate(_A[i]):
+            if aij != 0.0:
+                vi = vi + hc * aij * ks[j]
+        ki, sti = f(t + _C[i] * h, vi)
+        status = torch.where(status != 0, status, sti)
+        ks.append(ki)
+    # stage 7: A[6] == B5, so v7 is the 5th-order solution v5
+    dv5 = torch.zeros_like(v)
+    for j, aij in enumerate(_A[6]):
+        if aij != 0.0:
+            dv5 = dv5 + hc * aij * ks[j]
+    v5 = v + dv5
+    k7, st7, resid, chk = f_check(t + _C[6] * h, v5)
+    status = torch.where(status != 0, status, st7)
+    ks.append(k7)
+    err = torch.zeros_like(v)
+    for bi5, bi4, ki in zip(_B5, _B4, ks):
+        err = err + hc * (bi5 - bi4) * ki
+    return v5, dv5, err, status, k7, status, resid, chk
+
+
+def rk45_step(cfg, params, s, v, h0):
+    """Advance one outer step ds adaptively.  Returns (v_new, status, h_next)."""
+    f1, st1 = rhs_mod.eqn_ray(cfg, params, s, v)
+    return rk45_step_carried(cfg, params, s, v, h0, f1, st1)
+
+
+def rk45_step_carried(cfg, params, s, v, h0, f1, st1):
+    """Carried-stage form returning (v_new, status, h_next); see
+    rk45_step_carried_full for the endpoint-sharing variant."""
+    return rk45_step_carried_full(cfg, params, s, v, h0, f1, st1)[:3]
+
+
+def rk45_step_carried_full(cfg, params, s, v, h0, f1, st1, active=None):
+    """Advance one outer step ds adaptively, with (f1, st1) = eqn_ray(s, v)
+    supplied by the caller (the tracer carries it from the previous step's
+    endpoint stage).  s: scalar; v, f1: (B, nv); h0, st1: (B,).  Returns
+    (v_new, status, h_next, f_end, f_end_status, resid, check_status):
+    f_end is the RHS at (sout, v_new), the FSAL 7th stage of the final
+    accepted substep, and (resid, check_status) are check_save's values at
+    the same point from the same equilibrium evaluation, so the tracer
+    pays no separate endpoint evaluation.
+
+    ``h0`` is the converged step size carried over from the previous outer
+    step (the SG suite likewise keeps its step and order state across outer
+    steps, SG_ode_m.f90:73-85 resets only at ray start).  Within the
+    substep loop the first stage rides FSAL: an accepted substep's k7
+    becomes the next substep's k1; a rejected substep reuses its k1.
+
+    ``cfg.sg_scan_substeps > 0`` replaces the loop by that fixed number of
+    masked substeps, unrolled: the form that differentiates.  Asking for
+    gradients with ``sg_scan_substeps == 0`` raises.  The JAX package's
+    compensated carry (``c0``) is not ported (ROADMAP A18).
+
+    ``active`` (B,) bool, optional: rays outside it take no substep and
+    what is returned for them means nothing.  The tracer passes the rays
+    that are still live, whose results alone it keeps, so that rays which
+    have stopped do not hold the loop open.
+    """
+    B = v.shape[0]
+    dev, dt = v.device, v.dtype
+    ds = params.ode.ds
+    sout = s + ds
+    rel, ab = params.ode.rel_err, params.ode.abs_err
+
+    def f(ss, vv):
+        return rhs_mod.eqn_ray(cfg, params, ss, vv)
+
+    def f_check(ss, vv):
+        return rhs_mod.eqn_ray_and_check(cfg, params, ss, vv)
+
+    h_min = ds.abs() * 1e-12
+    # "reached sout" tolerance: below ~eps*|sout| the update t += h would
+    # round away and the loop could spin until the substep budget dies
+    done_tol = ds.abs() * 1e-10
+    total_error = torch.full((B,), int(StopCode.ODE_TOTAL_ERROR), dtype=torch.int32,
+                             device=dev)
+
+    def cond(carry):
+        t, status, n_sub = carry[0], carry[-2], carry[-1]
+        live = (sout - t > done_tol) & (status == 0) & (n_sub < cfg.max_substeps)
+        return live if active is None else live & active
+
+    def body(carry, live):
+        t, vv, h, k1, k1_st, resid, chk, status, n_sub = carry
+        # Step sizes are non-differentiated control state: the adjoint of
+        # an adaptive integrator is the discrete adjoint of the frozen
+        # accepted-substep sequence.  detach() cuts the whole controller
+        # chain (err -> err_ratio -> factor -> h) out of the backward
+        # pass; the primal values are unchanged.
+        h_try = torch.minimum(h, sout - t).detach()
+        v5, _, err, rhs_status, k7, k7_st, resid5, chk5 = _dopri_step(
+            f, f_check, t, vv, h_try, k1, k1_st)
+
+        tol = ab + rel * torch.maximum(vv.abs(), v5.abs())
+        err_ratio = (err.abs() / tol).amax(dim=-1)
+        accept = (err_ratio <= 1.0) & (rhs_status == 0)
+        if stats is not None:
+            stats.add(live, accept)
+
+        acc = accept[:, None]
+        t_new = torch.where(accept, t + h_try, t)
+        v_new = torch.where(acc, v5, vv)
+        k1_new = torch.where(acc, k7, k1)
+        k1_st_new = torch.where(accept, k7_st, k1_st)
+        resid_new = torch.where(accept, resid5, resid)
+        chk_new = torch.where(accept, chk5, chk)
+
+        safe_ratio = err_ratio.clamp_min(constants.SAFE_TINY)
+        factor = (_SAFETY * safe_ratio ** (-0.2)).clamp(_MIN_FACTOR, _MAX_FACTOR)
+        h_new = torch.maximum(h_try * factor, h_min).detach()
+
+        status = torch.where(rhs_status != 0, rhs_status, status)
+        status = torch.where((~accept) & (h_try <= h_min) & (status == 0),
+                             total_error, status)
+        return (t_new, v_new, h_new, k1_new, k1_st_new, resid_new, chk_new,
+                status, n_sub + 1)
+
+    def masked(live, old, new):
+        """Per ray: the new carry where its condition held, else the old."""
+        return tuple(torch.where(live[:, None] if a.dim() == 2 else live, b, a)
+                     for a, b in zip(old, new))
+
+    zero_i = torch.zeros((B,), dtype=torch.int32, device=dev)
+    t0 = torch.zeros((B,), dtype=dt, device=dev) + s
+    h_start = torch.minimum(torch.maximum(h0, h_min), ds.abs())
+    carry = (t0, v, h_start, f1, st1, torch.zeros((B,), dtype=dt, device=dev),
+             zero_i, zero_i, zero_i)
+    n_scan = int(cfg.sg_scan_substeps)
+    if n_scan > 0:
+        # a fixed budget of masked substeps, unrolled; the check after the
+        # loop still fires if a ray needed more
+        for _ in range(n_scan):
+            live = cond(carry)
+            carry = masked(live, carry, body(carry, live))
+            if stats is not None:
+                stats.loops += 1
+    else:
+        if needs_grad(params, v, f1):
+            raise ValueError(
+                "gradients through the SG_ODE stepper need cfg.sg_scan_substeps > 0 "
+                "(the fixed budget of masked substeps); with sg_scan_substeps == 0 "
+                "the substep loop runs until every ray is done and is not "
+                "differentiated")
+        while True:
+            live = cond(carry)
+            if stats is not None:
+                stats.host_reads += 1
+            if not bool(live.any()):
+                break
+            carry = masked(live, carry, body(carry, live))
+            if stats is not None:
+                stats.loops += 1
+    t_f, v_f, h_f, k_f, k_st_f, resid_f, chk_f, status, _ = carry
+    # substep budget exhausted without reaching sout: tolerance failure
+    status = torch.where((status == 0) & (sout - t_f > done_tol), total_error, status)
+    return v_f, status, h_f, k_f, k_st_f, resid_f, chk_f

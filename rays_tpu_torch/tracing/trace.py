@@ -10,12 +10,13 @@ Stop-check order per outer step matches the reference tracing loop
 A step rejected by (3) or (4) leaves the ray state unchanged and is not
 recorded.
 
-``trace_batch`` is plain PyTorch and runs on any device; autograd
-differentiates it with respect to every floating Params leaf, v0 and
-pwr_wt (the adjoint, ROADMAP A9), with each step rematerialized on the
-backward pass when ``cfg.remat_steps`` is on.  ``trace_rays`` is the
-top-level dispatch: the plain tracer for CPU tensors and for gradients,
-the CUDA kernel (tracing/fused_slab.py) for CUDA tensors.
+``trace_batch`` is plain PyTorch and runs on any device, with the
+fixed-step RK4 (``RK4_ODE``) or the adaptive DP5(4) stepper (``SG_ODE``,
+tracing/rk45.py); autograd differentiates it with respect to every
+floating Params leaf, v0 and pwr_wt (the adjoint), with each step
+rematerialized on the backward pass when ``cfg.remat_steps`` is on.
+``trace_rays`` is the top-level dispatch; ``route`` says from the config
+alone which of the two tracers a run takes.
 """
 
 from __future__ import annotations
@@ -26,9 +27,10 @@ from typing import Any, NamedTuple
 import torch
 import torch.utils.checkpoint
 
-from rays_tpu_torch.core.types import tree_leaves
+from rays_tpu_torch.core.types import needs_grad
+from rays_tpu_torch.models import base
 from rays_tpu_torch.tracing import rhs as rhs_mod
-from rays_tpu_torch.tracing import rk4
+from rays_tpu_torch.tracing import rk4, rk45
 from rays_tpu_torch.tracing.stop import StopCode
 
 
@@ -47,33 +49,68 @@ class RayResults(NamedTuple):
     end_ray_vec: Any        # (B, nv)
 
 
-def _needs_grad(params, v0):
-    return torch.is_grad_enabled() and (
-        v0.requires_grad or any(leaf.requires_grad for leaf in tree_leaves(params)))
+def get_step_fn(cfg):
+    """(cfg, params, s, v, h) -> (v_new, status, h_next) for the solver."""
+    if cfg.ode_solver_name == "RK4_ODE":
+        return lambda cfg, params, s, v, h: (*rk4.rk4_step(cfg, params, s, v), h)
+    if cfg.ode_solver_name == "SG_ODE":
+        # the adaptive equivalent of the Shampine-Gordon suite
+        return rk45.rk45_step
+    raise ValueError(f"invalid ode solver {cfg.ode_solver_name}")
+
+
+def get_carried_step_fn(cfg):
+    """Stepper taking (cfg, params, s, v, h, f1, st1) with the first stage
+    supplied from the previous step's shared endpoint evaluation."""
+    if cfg.ode_solver_name == "RK4_ODE":
+        return lambda cfg, params, s, v, h, f1, st1: (
+            *rk4.rk4_step_carried(cfg, params, s, v, f1, st1), h)
+    if cfg.ode_solver_name == "SG_ODE":
+        return rk45.rk45_step_carried
+    raise ValueError(f"invalid ode solver {cfg.ode_solver_name}")
+
+
+def check_supported(cfg):
+    """Raise for a config the port cannot trace, on every device: a
+    geometry of a later slice names its ROADMAP item."""
+    base.get_eq_model(cfg.equilib_model)
+    get_step_fn(cfg)
+    rhs_mod.check_ported(cfg)
+
+
+def route(cfg, needs_grad, device) -> str:
+    """Which tracer a run takes, decided from the config, whether
+    gradients are asked for, and the device of its tensors, before
+    anything is launched: ``"kernel"`` (the slab RK4 CUDA kernel,
+    tracing/fused_slab.py) or ``"plain"`` (``trace_batch`` on the tensors'
+    own device).
+
+    On a CUDA device every config that ``fused_slab.supported`` accepts
+    takes the kernel, unless gradients are asked for (the kernel has no
+    backward; the JAX package's adjoint, too, is reverse mode through its
+    plain scan).  Every other config the port supports (the adaptive
+    stepper, the Solovev tokamak, the equilibrium-gradient slots, the
+    autodiff derivatives) runs ``trace_batch`` on the card, as the JAX
+    package runs them as plain XLA operations.  This is a choice, not a
+    fallback: a kernel that fails to build or launch raises."""
+    check_supported(cfg)
+    kind = torch.device(device).type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"trace_rays: unsupported device {device}")
+    if kind == "cpu" or needs_grad:
+        return "plain"
+    from rays_tpu_torch.tracing import fused_slab
+
+    return "kernel" if fused_slab.supported(cfg) else "plain"
 
 
 def trace_rays(cfg, params, v0, status0, pwr_wt) -> RayResults:
     """Top-level tracer dispatch (reference trace_rays,
-    ray_tracing.f90:1).
-
-    CPU tensors run the plain ``trace_batch``.  CUDA tensors run the slab
-    RK4 CUDA kernel when ``fused_slab.supported(cfg)``, and raise for any
-    other config, never falling back to the plain tracer.  The one
-    exception is the adjoint: when grad mode is on and a Params leaf or v0
-    requires grad, ``trace_batch`` runs on the tensors' own device, since
-    the kernel has no backward (the JAX package's adjoint, too, is
-    reverse mode through its plain scan)."""
-    if v0.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"trace_rays: unsupported device {v0.device}")
-    if v0.device.type == "cpu" or _needs_grad(params, v0):
+    ray_tracing.f90:1): the tracer that ``route`` names."""
+    if route(cfg, needs_grad(params, v0), v0.device) == "plain":
         return trace_batch(cfg, params, v0, status0, pwr_wt)
     from rays_tpu_torch.tracing import fused_slab
 
-    if not fused_slab.supported(cfg):
-        raise NotImplementedError(
-            "on CUDA only the configs of tracing/fused_slab.supported run "
-            "without gradients (the analytic slab, cold RK4, with or without "
-            "damp_fund_ECH); this config is not ported to the GPU yet")
     return fused_slab.trace_batch_fused(cfg, params, v0, status0, pwr_wt)
 
 
@@ -82,13 +119,12 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
     int32 (nonzero entries, e.g. padding rays, never start); pwr_wt: (B,).
 
     The endpoint evaluation that feeds check_save also supplies the next
-    step's first RK stage (rhs.eqn_ray_and_check), so each outer step pays
-    4 equilibrium evaluations."""
-    if cfg.ode_solver_name != "RK4_ODE":
-        raise NotImplementedError(
-            f"ode_solver_name {cfg.ode_solver_name!r} is not ported yet "
-            "(ROADMAP A10)")
-    rhs_mod.check_ported(cfg)
+    step's first stage (rhs.eqn_ray_and_check), so an RK4 outer step pays 4
+    equilibrium evaluations.  Under ``SG_ODE`` the adaptive stepper's FSAL
+    7th stage is that endpoint evaluation, and each ray carries its
+    converged step size ``hstate`` from one outer step to the next."""
+    check_supported(cfg)
+    sg = cfg.ode_solver_name == "SG_ODE"
     ds, s_max = params.ode.ds, params.ode.s_max
     B, nv = v0.shape
     dev, dt = v0.device, v0.dtype
@@ -105,7 +141,7 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
     max_res = torch.zeros((B,), dtype=dt, device=dev)
     sout_gt = torch.full_like(status, int(StopCode.SOUT_GT_SMAX))
 
-    def step(k, v, f1, st1, status, nstep, end_res, max_res):
+    def step(k, v, f1, st1, hstate, status, nstep, end_res, max_res):
         s = k * ds
         sout = (k + 1) * ds
 
@@ -113,9 +149,14 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
         status = torch.where(active & (sout > s_max), sout_gt, status)
         active = status == 0
 
-        v_new, solver_st = rk4.rk4_step_carried(cfg, params, s, v, f1, st1)
-        f_new, rhs_st_new, resid, check_st = rhs_mod.eqn_ray_and_check(
-            cfg, params, sout, v_new)
+        if sg:
+            (v_new, solver_st, h_new, f_new, rhs_st_new, resid,
+             check_st) = rk45.rk45_step_carried_full(cfg, params, s, v, hstate, f1, st1,
+                                                     active)
+        else:
+            v_new, solver_st = rk4.rk4_step_carried(cfg, params, s, v, f1, st1)
+            f_new, rhs_st_new, resid, check_st = rhs_mod.eqn_ray_and_check(
+                cfg, params, sout, v_new)
         status = torch.where(active & (solver_st != 0), solver_st, status)
         accepted = active & (solver_st == 0)
         status = torch.where(accepted & (check_st != 0), check_st, status)
@@ -127,17 +168,21 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
         # the stage matching its frozen state
         f1 = torch.where(okc, f_new, f1)
         st1 = torch.where(ok, rhs_st_new, st1)
+        if sg:
+            # the converged step size persists across outer steps
+            hstate = torch.where(ok, h_new, hstate)
         nstep = nstep + ok.to(torch.int32)
         end_res = torch.where(ok, resid, end_res)
         max_res = torch.where(ok, torch.maximum(max_res, resid), max_res)
         row = torch.where(okc, v, 0.0)
         res_row = torch.where(ok, resid, 0.0)
-        return v, f1, st1, status, nstep, end_res, max_res, row, res_row
+        return v, f1, st1, hstate, status, nstep, end_res, max_res, row, res_row
 
     # the analog of jax.checkpoint(body) (JAX trace.py:233-238): the
     # backward pass keeps each step's inputs and recomputes its insides
-    remat = cfg.remat_steps and _needs_grad(params, v0)
-    carry = (v0, f1, st1, status, nstep, end_res, max_res)
+    remat = cfg.remat_steps and needs_grad(params, v0)
+    hstate = torch.zeros((B,), dtype=dt, device=dev) + ds
+    carry = (v0, f1, st1, hstate, status, nstep, end_res, max_res)
     # trajectory rows are stacked once at the end: writing them into a
     # preallocated buffer would chain one whole-buffer copy per step into
     # the backward pass
@@ -148,11 +193,11 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
                 functools.partial(step, k), *carry, use_reentrant=False)
         else:
             out = step(k, *carry)
-        carry = out[:7]
+        carry = out[:8]
         if cfg.save_trajectory:
-            rows.append(out[7])
-            res_rows.append(out[8])
-    v, _, _, status, nstep, end_res, max_res = carry
+            rows.append(out[8])
+            res_rows.append(out[9])
+    v, _, _, _, status, nstep, end_res, max_res = carry
 
     # still-live rays exhausted the step budget (ray_tracing.f90:150-172)
     status = torch.where(status == 0, torch.full_like(status, int(StopCode.NSTEP_MAX)),

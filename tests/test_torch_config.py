@@ -19,7 +19,8 @@ from rays_tpu_torch.core.types import Config, tree_leaves
 from rays_tpu_torch.tracing import stop as tstop
 from rays_tpu.tracing import stop as jstop
 
-TEXTS = {"slab_ech_90ghz": jex.SLAB_ECH_90GHZ, "slab_ech_damped": jex.SLAB_ECH_DAMPED}
+TEXTS = {"slab_ech_90ghz": jex.SLAB_ECH_90GHZ, "slab_ech_damped": jex.SLAB_ECH_DAMPED,
+         "solovev_ech_90ghz": jex.SOLOVEV_ECH_90GHZ}
 
 
 def _jax_leaves(tree, prefix=""):
@@ -61,6 +62,7 @@ def test_from_namelist_matches_jax(name):
 def test_examples_text_identical():
     assert tex.SLAB_ECH_90GHZ == jex.SLAB_ECH_90GHZ
     assert tex.SLAB_ECH_DAMPED == jex.SLAB_ECH_DAMPED
+    assert tex.SOLOVEV_ECH_90GHZ == jex.SOLOVEV_ECH_90GHZ
 
 
 def test_namelist_parser_identical():
@@ -104,9 +106,39 @@ def test_compensated_sum_rejected():
 
 
 def test_unported_models_raise():
-    with pytest.raises(NotImplementedError, match="A12"):
-        tschema.from_namelist(tparse(jex.SOLOVEV_ECH_90GHZ))
+    """Solovev parses (its model and its ray init); the geometries and ray
+    inits still to come name ROADMAP A13, in the importer and in convert."""
+    cfg, params = tschema.from_namelist(tparse(jex.SOLOVEV_ECH_90GHZ))
+    assert cfg.equilib_model == "solovev" and cfg.ode_solver_name == "SG_ODE"
+    assert cfg.ray_init_model == "solovev_ray_init_nphi_ntheta"
+    assert type(params.eq).__name__ == "SolovevParams"
+    assert type(cfg.rayinit_static).__name__ == "SolovevInit"
     text = jex.SLAB_ECH_90GHZ.replace("ray_init_model='simple_slab'",
                                       "ray_init_model='file_input_ray_init'")
-    with pytest.raises(NotImplementedError, match="ray_init_model"):
+    with pytest.raises(NotImplementedError, match="ray_init_model.*A13"):
         tschema.from_namelist(tparse(text))
+    for model in ("axisym_toroid", "multiple_mirror"):
+        text = jex.SLAB_ECH_90GHZ.replace("equilib_model='slab'",
+                                          f"equilib_model='{model}'")
+        with pytest.raises(NotImplementedError, match="A13"):
+            tschema.from_namelist(tparse(text))
+        jcfg, _ = jschema.from_namelist(jparse(jex.SLAB_ECH_90GHZ))
+        d = dataclasses.asdict(jcfg)
+        with pytest.raises(NotImplementedError, match="A13"):
+            convert.config_from_dict(dict(d, equilib_model=model))
+        with pytest.raises(NotImplementedError, match="A13"):
+            convert.config_from_dict(dict(d, ray_init_model="file_input_ray_init"))
+
+
+def test_grad_diag_slot_matches_jax():
+    """Config.nv, damping_slot and grad_diag_slot over the slot options."""
+    jcfg, _ = jschema.from_namelist(jparse(jex.SLAB_ECH_DAMPED))
+    pcfg, _ = tschema.from_namelist(tparse(jex.SLAB_ECH_DAMPED))
+    for damp in ("no_damp", "damp_fund_ECH"):
+        for multi in (False, True):
+            for grads in (False, True):
+                ch = dict(damping_model=damp, multi_spec_damping=multi,
+                          integrate_eq_gradients=grads)
+                j, p = dataclasses.replace(jcfg, **ch), dataclasses.replace(pcfg, **ch)
+                assert (p.nv, p.damping_slot, p.grad_diag_slot) == \
+                    (j.nv, j.damping_slot, j.grad_diag_slot), ch

@@ -95,6 +95,22 @@ def damped_runs():
     return (cfg, params, ref), (pcfg, pp, ttrace.trace_batch(pcfg, pp, tv0, tst, tpw))
 
 
+@pytest.fixture(scope="module")
+def solovev_damped_runs():
+    """The Solovev fan with damp_fund_ECH, traced by both packages with
+    fixed-step RK4 over 120 steps (trajectories on), at 56 GHz and 2e19
+    m^-3 so that the fundamental resonance lies on the rays' way: four of
+    the eight rays are absorbed."""
+    text = (jex.SOLOVEV_ECH_90GHZ.replace("frf=90.e9", "frf=56.e9")
+            .replace("n0=8.0e19", "n0=2.0e19")
+            .replace("damping_model='no_damp'", "damping_model='damp_fund_ECH'"))
+    cfg, params, v0, st, pwr = tp.jax_case(text, ode_solver_name="RK4_ODE", nstep_max=120)
+    assert v0.shape == (8, 8)
+    ref = jax.jit(lambda p, v, s, w: jtrace.trace_batch(cfg, p, v, s, w))(params, v0, st, pwr)
+    pcfg, pp, tv0, tst, tpw = tp.to_port(cfg, params, v0, st, pwr)
+    return (cfg, params, ref), (pcfg, pp, ttrace.trace_batch(pcfg, pp, tv0, tst, tpw))
+
+
 @pytest.mark.parametrize("chunk_elements", [None, 4000], ids=["one_chunk", "chunked"])
 def test_deposition_profile_matches_jax(damped_runs, monkeypatch, chunk_elements):
     (cfg, params, ref), (pcfg, pp, got) = damped_runs
@@ -117,13 +133,24 @@ def test_deposition_profile_matches_jax(damped_runs, monkeypatch, chunk_elements
 @pytest.mark.parametrize("which,geometry,item", [
     ("Ptotal_psi", "solovev", "A12"), ("Ptotal_psi", "axisym_toroid", "A13"),
     ("Ptotal_rho", "axisym_toroid", "A13"), ("Ptotal_AphiN", "multiple_mirror", "A13")])
-def test_deposition_profile_refusals(damped_runs, which, geometry, item):
-    """Only Ptotal_x is ported; the other coordinates name their geometry's
-    ROADMAP item, and a coordinate the geometry lacks is an error, as in JAX."""
+def test_deposition_profile_refusals(damped_runs, solovev_damped_runs, which, geometry, item):
+    """Ptotal_x and the Solovev Ptotal_psi (ROADMAP A12) are ported; the
+    coordinates of the spline geometries name ROADMAP A13, and a
+    coordinate the geometry lacks is an error, as in JAX."""
     (_, _, _), (pcfg, pp, got) = damped_runs
-    with pytest.raises(NotImplementedError, match=item):
-        tdep.calculate_deposition_profile(dataclasses.replace(pcfg, equilib_model=geometry),
-                                          pp, got, which)
+    if geometry == "solovev":
+        (scfg, sparams, sref), (spcfg, spp, sgot) = solovev_damped_runs
+        jprof = jdep.calculate_deposition_profile(scfg, sparams, sref, which, n_bins=N_BINS)
+        tprof = tdep.calculate_deposition_profile(spcfg, spp, sgot, which, n_bins=N_BINS)
+        jp = np.asarray(jprof.profile)
+        assert tprof.name == which and jp.max() > 1e-3
+        np.testing.assert_allclose(tprof.profile.numpy(), jp, rtol=PROFILE_RTOL,
+                                   atol=PROFILE_RTOL * np.abs(jp).max())
+        np.testing.assert_allclose(tprof.grid.numpy(), np.asarray(jprof.grid), rtol=1e-15)
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            tdep.calculate_deposition_profile(
+                dataclasses.replace(pcfg, equilib_model=geometry), pp, got, which)
     with pytest.raises(ValueError, match="not available"):
         tdep.calculate_deposition_profile(pcfg, pp, got, which)
     with pytest.raises(ValueError, match="damping model"):

@@ -82,13 +82,17 @@ def test_supported_matches_jax(save):
     assert tfused.supported(port_damped)
     assert tfused.supported(dataclasses.replace(port_damped, multi_spec_damping=False))
 
-    sol, *_ = jex.setup_example(jex.SOLOVEV_ECH_90GHZ)
+    # the gate refuses the Solovev tokamak under either stepper, and the
+    # adaptive stepper on the slab, in both packages
+    sol, sparams, *_ = jex.setup_example(jex.SOLOVEV_ECH_90GHZ)
     sol = dataclasses.replace(sol, save_trajectory=save)
-    # the port has no Solovev model yet: carry the switches only
-    fields = {f.name for f in dataclasses.fields(Config)} - {"eq_static", "rayinit_static"}
-    port_sol = Config(**{k: v for k, v in dataclasses.asdict(sol).items() if k in fields})
-    assert not jfused.supported(sol)
-    assert not tfused.supported(port_sol)
+    port_sol = tp.to_port(sol, sparams)[0]
+    assert isinstance(port_sol, Config) and port_sol.equilib_model == "solovev"
+    for solver in ("SG_ODE", "RK4_ODE"):
+        assert not jfused.supported(dataclasses.replace(sol, ode_solver_name=solver))
+        assert not tfused.supported(dataclasses.replace(port_sol, ode_solver_name=solver))
+    assert not jfused.supported(dataclasses.replace(cfg, ode_solver_name="SG_ODE"))
+    assert not tfused.supported(dataclasses.replace(pcfg, ode_solver_name="SG_ODE"))
 
 
 @pytest.mark.parametrize("combo", tp.MODEL_COMBOS,

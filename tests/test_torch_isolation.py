@@ -11,7 +11,8 @@ import torch
 
 from rays_tpu_torch import examples, run as trun
 from rays_tpu_torch.tracing import fused_slab
-from rays_tpu_torch.tracing.trace import trace_rays
+from rays_tpu_torch.tracing import trace as trace_mod
+from rays_tpu_torch.tracing.trace import route, trace_rays
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -22,6 +23,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "rays_tpu_torch.convert, rays_tpu_torch.examples, rays_tpu_torch.native",
     "rays_tpu_torch.post.deposition, rays_tpu_torch.ops.binning, "
     "rays_tpu_torch.ops.zfun, rays_tpu_torch.wave.damping",
+    "rays_tpu_torch.models.solovev, rays_tpu_torch.rayinit.solovev, "
+    "rays_tpu_torch.tracing.rk45, rays_tpu_torch.results.ascii, "
+    "rays_tpu_torch.utils.diagnostics",
 ])
 def test_import_pulls_in_no_jax(modules):
     code = (f"import sys, {modules}\n"
@@ -76,6 +80,30 @@ def test_non_cpu_tensors_never_run_the_plain_tracer():
     with pytest.raises(ValueError, match="unsupported device"):
         trace_rays(cfg, params, v0.to("meta"), st.to("meta"), pwr.to("meta"))
     assert fused_slab.LAUNCHES == before
+    # and for this config, which the gate accepts, the CUDA route is the
+    # kernel: the plain tracer is not among its choices off the CPU
+    assert fused_slab.supported(cfg) and route(cfg, False, "cuda") == "kernel"
+
+
+@pytest.mark.parametrize("text", [examples.SLAB_ECH_90GHZ, examples.SLAB_ECH_DAMPED],
+                         ids=["slab", "damped"])
+def test_kernel_configs_never_take_the_plain_route_off_the_cpu(text, monkeypatch):
+    """A config the gate accepts goes to the kernel on CUDA tensors, from
+    the config alone; only a request for gradients takes the plain route
+    there.  Without nvcc the kernel route raises: nothing runs in its place."""
+    cfg, params, v0, st, pwr = examples.setup_example(text, device="cpu")
+    assert fused_slab.supported(cfg)
+    assert route(cfg, False, "cuda") == route(cfg, False, torch.device("cuda", 0)) == "kernel"
+    assert route(cfg, True, "cuda") == "plain"
+    assert route(cfg, False, "cpu") == route(cfg, True, "cpu") == "plain"
+    with pytest.raises(ValueError, match="unsupported device"):
+        route(cfg, False, "meta")
+    _no_cuda()
+    called = []
+    monkeypatch.setattr(trace_mod, "trace_batch", lambda *a: called.append(a))
+    with pytest.raises((RuntimeError, AssertionError)):
+        trace_rays(cfg, params, v0.to("meta").to("cuda"), st, pwr)
+    assert not called
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch):

@@ -227,13 +227,25 @@ def test_eqn_ray_and_check(case, ray_param):
 
 
 def test_rhs_refuses_later_slices():
-    """The A14 options raise; damping (A11) runs, with its slots."""
+    """No RHS option is left to a later slice: the equilibrium-gradient
+    slots and the autodiff derivatives compute (held to the JAX package in
+    tests/test_torch_adaptive.py), damping runs with its slots, and only
+    an option that does not exist raises."""
     jcfg, jparams, *_ = tp.jax_case()
     pcfg, pp = tp.to_port(jcfg, jparams)
     v = torch.zeros((1, 7), dtype=torch.float64)
     v[0, 0], v[0, 3] = -0.08, 1.0
-    for change in (dict(integrate_eq_gradients=True), dict(ray_deriv_name="autodiff")):
-        with pytest.raises(NotImplementedError, match="A14"):
+    base_dv, base_st = trhs.eqn_ray(pcfg, pp, 0.0, v)
+    grads = dataclasses.replace(pcfg, integrate_eq_gradients=True)
+    vg = torch.cat([v, torch.zeros((1, 5), dtype=torch.float64)], dim=1)
+    dv, st = trhs.eqn_ray(grads, pp, 0.0, vg)
+    assert dv.shape == (1, grads.nv) == (1, 12) and st.tolist() == [0]
+    assert torch.equal(dv[:, :7], base_dv)
+    dv, st = trhs.eqn_ray(dataclasses.replace(pcfg, ray_deriv_name="autodiff"), pp, 0.0, v)
+    assert st.tolist() == base_st.tolist()
+    np.testing.assert_allclose(dv.numpy(), base_dv.numpy(), rtol=1e-8)
+    for change in (dict(ray_deriv_name="numerical"), dict(ray_param="phase")):
+        with pytest.raises(ValueError, match="invalid"):
             trhs.eqn_ray(dataclasses.replace(pcfg, **change), pp, 0.0, v)
     damped = dataclasses.replace(pcfg, damping_model="damp_fund_ECH")
     vd = torch.cat([v, torch.zeros((1, 1), dtype=torch.float64)], dim=1)

@@ -152,8 +152,14 @@ def test_trace_rays_cpu_runs_plain_tracer():
     for x, y in zip(g, b):
         assert torch.equal(x.detach(), y)
     assert g.end_ray_vec.requires_grad
-    with pytest.raises(NotImplementedError, match="A10"):
-        ttrace.trace_batch(dataclasses.replace(cfg, ode_solver_name="SG_ODE"),
+    # the adaptive stepper rides the same dispatch
+    sg = dataclasses.replace(cfg, ode_solver_name="SG_ODE")
+    a = ttrace.trace_rays(sg, params, v0, st, pwr)
+    assert a.npoints.tolist() == [21] * 3
+    for x, y in zip(a, ttrace.trace_batch(sg, params, v0, st, pwr)):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="invalid ode solver"):
+        ttrace.trace_batch(dataclasses.replace(cfg, ode_solver_name="EULER"),
                            params, v0, st, pwr)
 
 
@@ -180,4 +186,7 @@ def test_cli_netcdf_matches_jax(tmp_path, monkeypatch):
     np.testing.assert_array_equal(got["ray_stop_flag"], ref["ray_stop_flag"])
     tp.assert_scaled_close(got["ray_vec"], ref["ray_vec"], TRAJ_RTOL, axis=1,
                            what="netCDF ray_vec")
-    assert not os.path.exists(tmp_path / "port" / "log.RAYS.slab_demo")
+    # the port's CLI writes its run log unless --no-log is given
+    assert not os.path.exists(tmp_path / "jax" / "log.RAYS.slab_demo")
+    assert os.path.exists(tmp_path / "port" / "log.RAYS.slab_demo")
+    assert not os.path.exists(tmp_path / "port" / "messages")
