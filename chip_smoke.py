@@ -15,13 +15,22 @@ script exits non-zero.
 Phases 1-6: the undamped slab ECH 90 GHz main path (32,768 rays x 500
 steps).  Phase 7: the damped example through the kernel.  Phase 8: the
 damped batch, 32,768 rays x 400 steps, f64 and f32, timed.  Phase 9: the
-training step of __graft_entry__.py on one GPU.  Phases 10-13: the paths
+training step of __graft_entry__.py on one GPU, at 100 of its 400 steps.  Phases 10-13: the paths
 that have no kernel and run as plain PyTorch on the card, as the JAX
 package runs them as plain XLA operations: the Solovev tokamak fan under
 the adaptive stepper (the example against the same code on the CPU, the
 CLI with its netCDF file, list-directed file and run log, and 32,768 rays
 x 200 outer steps), the slab under the adaptive stepper (32,768 rays x 500
-outer steps, f32 and f64) and the adaptive training step.  The last lines
+outer steps, f32 and f64) and the adaptive training step.  Phases 14-16:
+the spline geometries, plain PyTorch on the card as well (the JAX package
+has no kernel for them): the EQDSK tokamak (a 129 x 129 G-EQDSK written by
+the port's solovev_2_eqdsk; launch rays against the CPU, the splined B
+against the closed-form Solovev field, the CLI, 32,768 rays x 500 RK4
+steps at f64 and f32), the multiple mirror (a 51 x 201 field file from the
+port's coil-field generator; the same three parts) and the EQDSK adjoint
+(gradients with respect to the psi cell table and every other leaf, and a
+finite-difference check).  ``--only-spline`` runs phase 1 and phases 14-16
+alone.  The last lines
 are the total wall time, a JSON line of those paths' times, a JSON summary
 of the kernels and {"ok": true, "device": {...}}.  Without a CUDA device
 it exits non-zero and prints no result.
@@ -69,7 +78,19 @@ SOLOVEV_RESID_MAX = 1e-5
 # the example's tolerance of 1e-7 is below what float32 can resolve)
 SG_F32_RTOL_SLAB = (1e-3, 5e-4)
 F32_RTOL_SOLOVEV = (1e-3, 2e-2)
-SG_ADJOINT_STEPS = 100  # outer steps of the adaptive training step (bench.py runs 500)
+# the spline geometries: f32 against f64 at the endpoints of the rays that
+# stop at the same point in both, (positions, wavevector) of scale, and the
+# share of rays that may stop a step apart (a ray that leaves the plasma
+# crosses psiN = 1 or AphiN = 1 within float32 rounding of a step's end)
+F32_RTOL_SPLINE = (1e-3, 2e-2)
+F32_NPOINTS_SHARE = 0.02
+SPLINE_RESID_MAX = 1e-4     # tests/test_axisym.py
+SPLINE_EXAMPLE_STEPS = 120  # RK4 steps of the launch rays and the CLI (the batch runs 500)
+SPLINE_BATCH_STEPS = 500    # bench.py's
+EQDSK_ADJOINT_STEPS = 100   # RK4 steps of the EQDSK adjoint (bench.py runs 500)
+EQDSK_FD_STEPS = 20         # RK4 steps of its finite-difference check
+TRAIN_STEPS = 100       # RK4 steps of the damped training step (the example runs 400)
+SG_ADJOINT_STEPS = 50   # outer steps of the adaptive training step (bench.py runs 500)
 SG_FD_STEPS = 20        # outer steps of its finite-difference check
 # NVIDIA's H100 SXM data sheet: memory rate, and FP64 / FP32 rates outside
 # the tensor cores (an FMA is two operations)
@@ -193,6 +214,275 @@ def time_plain_and_kernel(fused_slab, cfg, params, v, st, w):
     return (runs[0] + runs[2]) / 2, runs[1], runs
 
 
+def plain_run(cfg_, params_, v_, st_, w_):
+    """trace_rays on a config that takes the plain route on the card:
+    (results, ms by CUDA events, (loops, host reads, attempts, rejected) of
+    the substep loop, peak bytes).  No kernel launch."""
+    from rays_tpu_torch.tracing import fused_slab, rk45
+    from rays_tpu_torch.tracing.trace import route, trace_rays
+
+    require(route(cfg_, False, v_.device) == "plain", "expected the plain route")
+    before = fused_slab.LAUNCHES
+    rk45.stats = rk45.SubstepStats()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ms, res = timed(lambda: trace_rays(cfg_, params_, v_, st_, w_))
+    totals = rk45.stats.totals()
+    rk45.stats = None
+    require(fused_slab.LAUNCHES == before, "the plain route launched the kernel")
+    require(all(t.is_cuda for t in res), "results left the card")
+    return res, ms, totals, torch.cuda.max_memory_allocated()
+
+
+def flag_counts(res):
+    from rays_tpu_torch.tracing.stop import flag_string
+
+    codes, counts = torch.unique(res.stop_flag, return_counts=True)
+    return {flag_string(c).strip(): n for c, n in zip(codes.tolist(), counts.tolist())}
+
+
+def run_cli(path, cwd):
+    """The CLI as a user calls it (python -m, the default device) on the
+    namelist ``path`` with --netcdf; returns its standard output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cli = subprocess.run([sys.executable, "-m", "rays_tpu_torch.run", path, "--netcdf"],
+                         cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+    require(cli.returncode == 0, f"the CLI failed on {path}:\n{cli.stdout}\n{cli.stderr}")
+    require("device: cuda" in cli.stdout, f"the CLI did not run on the card:\n{cli.stdout}")
+    return cli.stdout
+
+
+def spline_geometry_phase(phase, name, write_example, card, dev, paths, extra_check):
+    """Phases 14 and 15: one spline geometry from its files to the batch.
+    (a) the example's launch rays on the card against the same code on the
+    CPU and (b) the CLI with its netCDF file read back, both at
+    SPLINE_EXAMPLE_STEPS steps (an evaluation costs the host the same for 2
+    rays as for 32,768, so the depth is cut here and not in the batch);
+    (c) 32,768 rays x 500 RK4 steps, summaries only, f64 and f32.  Returns
+    (cfg, params, v0, st0, pwr) of the example on the card."""
+    from rays_tpu_torch import examples, run as runner
+    from rays_tpu_torch.core.types import tree_to
+    from rays_tpu_torch.results.netcdf import read_results_nc
+    from rays_tpu_torch.tracing import fused_slab
+    from rays_tpu_torch.tracing.stop import flag_string
+    from rays_tpu_torch.tracing.trace import trace_rays
+
+    f64, f32 = torch.float64, torch.float32
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = write_example(tmp)
+        t_files = time.perf_counter() - t0
+        with open(path) as f:
+            text = f.read()
+        require(f"nstep_max={SPLINE_BATCH_STEPS}" in text, f"the {name} example changed")
+        with open(path, "w") as f:
+            f.write(text.replace(f"nstep_max={SPLINE_BATCH_STEPS}",
+                                 f"nstep_max={SPLINE_EXAMPLE_STEPS}"))
+        t0 = time.perf_counter()
+        cfg, params, v0, st0, pwr = runner.setup(path, device=dev, dtype=f64)
+        t_setup = time.perf_counter() - t0
+        host_case = runner.setup(path, device="cpu", dtype=f64)
+        # (b) the CLI, in the directory of its input files
+        run_cli(path, tmp)
+        nc = read_results_nc(os.path.join(tmp, f"run_results.{cfg.run_label}.nc"))
+    require(cfg.ode_solver_name == "RK4_ODE" and cfg.nstep_max == SPLINE_EXAMPLE_STEPS
+            and cfg.save_trajectory, f"the {name} example changed")
+    require(not fused_slab.supported(cfg), f"the gate must refuse the {name} example")
+    require(all(t.is_cuda for t in (v0, st0, pwr)), "the launch rays are not on the card")
+
+    # (a) the launch rays, trajectories on, against the same code on the CPU
+    ex, ex_ms, _, _ = plain_run(cfg, params, v0, st0, pwr)
+    host = trace_rays(*host_case)
+    require(torch.equal(ex.npoints.cpu(), host.npoints), f"{name} npoints: card != CPU")
+    require(torch.equal(ex.stop_flag.cpu(), host.stop_flag), f"{name} flags: card != CPU")
+    err = scaled_err(ex.ray_vec.cpu(), host.ray_vec, per_ray_axis=1)
+    res_max = float(ex.max_residuals.max())
+    npts = ex.npoints.tolist()
+    flags = [flag_string(c).strip() for c in ex.stop_flag.tolist()]
+    require(err <= HOST_RTOL, f"{name} card vs CPU {err:.3e} > {HOST_RTOL}")
+    require(min(npts) > 5 and res_max < SPLINE_RESID_MAX,
+            f"{name} npoints {npts} max residual {res_max:.3e}")
+    print(f"phase {phase} {name} example f64, RK4 x {cfg.nstep_max} steps, route plain: files "
+          f"{t_files:.2f} s, setup "
+          f"{t_setup:.2f} s; {len(npts)} rays, npoints {npts} flags {flags} max residual "
+          f"{res_max:.3e}; card vs CPU trajectory err {err:.3e} of scale (bound {HOST_RTOL}); "
+          f"{ex_ms:.1f} ms; {extra_check(cfg, params)}")
+    require(nc["npoints"].tolist() == npts, f"{name} CLI npoints {nc['npoints']} != {npts}")
+    require(nc["ray_vec"].shape == (len(npts), max(npts), 7), f"{name} CLI ray_vec shape")
+    require(float(np.abs(nc["ray_vec"][:, :min(npts)] - ex.ray_vec.cpu().numpy()[:, :min(npts)])
+                  .max()) <= 1e-6 * float(ex.ray_vec.abs().max()),
+            f"{name} CLI trajectories differ from the library's")
+    print(f"phase {phase} {name} CLI: run_results.{cfg.run_label}.nc read back, npoints "
+          f"{nc['npoints'].tolist()}")
+
+    # (c) the batch
+    cfg_b = dataclasses.replace(cfg, save_trajectory=False, nstep_max=SPLINE_BATCH_STEPS)
+    vb, stb, wb = examples.replicate_rays(v0, st0, pwr, N_RAYS)
+    params32 = tree_to(params, dtype=f32)
+    plain_run(dataclasses.replace(cfg_b, nstep_max=3), params, vb, stb, wb)        # warm-up
+    n_eval = 4 * cfg_b.nstep_max + 1
+    table = params.eq.mag.psi_cells.cells if name == "EQDSK" else params.eq.field_cells.cells
+    out = {}
+    for dt, p_, v_, w_ in ((f64, params, vb, wb), (f32, params32, vb.to(f32), wb.to(f32))):
+        tag = "f32" if dt == f32 else "f64"
+        res, ms, _, peak = plain_run(cfg_b, p_, v_, stb, w_)
+        out[dt] = res
+        size = torch.finfo(dt).bits // 8
+        row = table.shape[2] * 16 * size
+        print(f"phase {phase} {name} RK4 {tag} {N_RAYS} rays x {cfg_b.nstep_max} steps: {ms:.1f} ms "
+              f"({N_RAYS / ms * 1e3:.0f} rays/s), {ms / n_eval:.3f} ms per evaluation "
+              f"({n_eval} evaluations; one row of {row} B per ray and evaluation = "
+              f"{N_RAYS * row / HBM_BYTES_PER_S * 1e3:.5f} ms at the memory rate); peak memory "
+              f"{peak / 2**30:.3f} GiB; npoints {sorted(set(res.npoints.tolist()))[:6]} flags "
+              f"{flag_counts(res)} max residual {float(res.max_residuals.max()):.3e} on {card}")
+        paths.append({"name": f"{name.lower()}_rk4_{tag}", "ms": ms, "ms_per_evaluation": ms / n_eval,
+                      "rays_per_s": N_RAYS / ms * 1e3})
+    # the batch's first rays are the example's: those the example's depth
+    # did not cut stop at the same point with the same flag
+    for i, n in enumerate(npts):
+        if n <= SPLINE_EXAMPLE_STEPS:
+            same_ray = (int(out[f64].npoints[i]) == n
+                        and int(out[f64].stop_flag[i]) == int(ex.stop_flag[i]))
+        else:
+            same_ray = int(out[f64].npoints[i]) > SPLINE_EXAMPLE_STEPS
+        require(same_ray, f"{name}: ray {i} of the batch stops elsewhere than the example's")
+    same = out[f32].npoints == out[f64].npoints
+    share = 1.0 - float(same.double().mean())
+    ex_, ek_ = group_err(out[f32].end_ray_vec[same], out[f64].end_ray_vec[same])
+    require(share <= F32_NPOINTS_SHARE, f"{name} f32: {share:.4f} of the rays stop elsewhere")
+    require(ex_ <= F32_RTOL_SPLINE[0] and ek_ <= F32_RTOL_SPLINE[1],
+            f"{name} f32 vs f64: positions {ex_:.3e}, k {ek_:.3e}")
+    print(f"phase {phase} {name} f32 vs f64: {share:.5f} of the rays stop a step apart (bound "
+          f"{F32_NPOINTS_SHARE}); on the others endpoints {ex_:.3e} (positions), {ek_:.3e} (k) "
+          f"of scale (bounds {F32_RTOL_SPLINE})")
+    return cfg, params, v0, st0, pwr
+
+
+def spline_phases(card, dev, paths):
+    """Phases 14-16: the spline geometries, plain PyTorch on the card."""
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.core.types import tree_leaves, tree_map
+    from rays_tpu_torch.models import base, solovev
+    from rays_tpu_torch.tracing import fused_slab
+    from rays_tpu_torch.tracing.trace import route, trace_rays
+
+    f64 = torch.float64
+    launches_before = fused_slab.LAUNCHES
+
+    def eqdsk_field_check(cfg, params):
+        """B and grad B from the splined 129 x 129 file against the
+        closed-form Solovev field, at the points and bars of
+        tests/test_axisym.py."""
+        pts = torch.tensor([[1.45, 0.0, 0.1], [1.2, 0.3, -0.2], [0.9, 0.2, 0.4],
+                            [1.5, 0.0, 0.0]], dtype=f64, device=dev)
+        closed = examples.setup_example(examples.SOLOVEV_ECH_90GHZ, device=dev, dtype=f64)[1].eq
+        b_ref, jb_ref, _, _ = solovev.magnetics_and_jac(closed, pts)
+        eq = base.equilibrium(cfg, params, pts)
+        require(torch.allclose(eq.bvec, b_ref, rtol=1e-5, atol=1e-6), "splined B != closed form")
+        require(torch.allclose(eq.gradb, jb_ref.transpose(1, 2), rtol=2e-3, atol=1e-3),
+                "splined grad B != closed form")
+        return (f"splined B vs closed-form Solovev at 4 points: max abs "
+                f"{float((eq.bvec - b_ref).abs().max()):.2e} T (rtol 1e-5, atol 1e-6), grad B "
+                f"{float((eq.gradb - jb_ref.transpose(1, 2)).abs().max()):.2e} T/m "
+                f"(rtol 2e-3, atol 1e-3)")
+
+    def mirror_field_check(cfg, params):
+        """div B = 0 on the launch region, to the spline's accuracy."""
+        pts = torch.tensor([[0.01, 0.0, 1.7], [0.0, 0.02, 1.8], [-0.02, 0.01, 1.9],
+                            [0.03, 0.0, 2.0], [0.0, 0.0, 1.6]], dtype=f64, device=dev)
+        eq = base.equilibrium(cfg, params, pts)
+        div = eq.gradb.diagonal(dim1=1, dim2=2).sum(-1).abs().max()
+        scale = eq.gradb.abs().max()
+        require(float(div) <= 1e-3 * float(scale), f"div B {float(div):.3e} of {float(scale):.3e}")
+        return (f"|B| at the launch points {[round(b, 4) for b in eq.bmag.tolist()]} T, "
+                f"div B {float(div):.2e} T/m of a gradient of {float(scale):.2e} T/m")
+
+    # phase 14: the EQDSK tokamak
+    cfg_e, params_e, v0_e, st0_e, pwr_e = spline_geometry_phase(
+        14, "EQDSK", examples.write_eqdsk_toroid_example, card, dev, paths, eqdsk_field_check)
+    # phase 15: the multiple mirror
+    spline_geometry_phase(15, "mirror", examples.write_mirror_example, card, dev, paths,
+                          mirror_field_check)
+
+    # phase 16: the EQDSK adjoint (the loss of bench.py's EQDSK row):
+    # gradients with respect to the psi cell table and every other leaf
+    def loss_of(res):
+        return (res.end_ray_vec[:, 0:3] ** 2 * res.initial_ray_power[:, None]).sum()
+
+    def adjoint_step(cfg_, v, st, w):
+        pg = tree_map(lambda t: t.detach().clone().requires_grad_(True), params_e)
+        require(route(cfg_, True, v.device) == "plain", "the adjoint takes the plain route")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = loss_of(trace_rays(cfg_, pg, v, st, w))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, tree_leaves(pg), allow_unused=True,
+                                    materialize_grads=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return (loss.detach(), pg, grads, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                torch.cuda.max_memory_allocated())
+
+    cfg_a = dataclasses.replace(cfg_e, save_trajectory=False, nstep_max=EQDSK_ADJOINT_STEPS)
+    vb, stb, wb = examples.replicate_rays(v0_e, st0_e, pwr_e, N_RAYS)
+    loss_a, pg, grads_a, fwd, bwd, peak = adjoint_step(cfg_a, vb, stb, wb)
+    bad = [i for i, g in enumerate(grads_a) if not bool(torch.isfinite(g).all())]
+    require(not bad, f"non-finite EQDSK gradients in leaves {bad}")
+    g_cells = next(g for g, t in zip(grads_a, tree_leaves(pg)) if t is pg.eq.mag.psi_cells.cells)
+    g_alphan = next(g for g, t in zip(grads_a, tree_leaves(pg)) if t is pg.eq.alphan1)
+    require(float(g_cells.abs().max()) > 0 and float(g_alphan.abs()) > 0,
+            "the psi cell table or alphan1 got no gradient")
+    print(f"phase 16 EQDSK adjoint {N_RAYS} rays x {EQDSK_ADJOINT_STEPS} RK4 steps f64 "
+          f"(summaries only): loss {float(loss_a):.12e}, forward {fwd:.1f} ms, backward "
+          f"{bwd:.1f} ms, peak memory {peak / 2**30:.2f} GiB; {len(grads_a)} leaf gradients all "
+          f"finite, the psi cell table's {tuple(g_cells.shape)} with "
+          f"{int((g_cells != 0).sum())} nonzero entries, max {float(g_cells.abs().max()):.3e} "
+          f"on {card}")
+    paths.append({"name": "eqdsk_adjoint_f64", "ms": fwd + bwd, "forward_ms": fwd,
+                  "backward_ms": bwd, "steps": EQDSK_ADJOINT_STEPS,
+                  "rays_per_s": N_RAYS / (fwd + bwd) * 1e3})
+    del grads_a, pg, vb, stb, wb
+
+    # The launch rays start at Z = 0, on a knot line of the grid, and one of
+    # them stays on it by symmetry.  A direction that moves every cell
+    # coefficient on its own makes psi discontinuous across that line, and
+    # the +eps and -eps runs then read different cells: the loss has no
+    # derivative there.  The check moves the rays a third of a cell off the
+    # line, where it has one.
+    cfg_f = dataclasses.replace(cfg_a, nstep_max=EQDSK_FD_STEPS)
+    v0_f = v0_e.clone()
+    v0_f[:, 2] += params_e.eq.mag.psi_cells.dy / 3.0
+    loss_f, _, grads_f, _, _, _ = adjoint_step(cfg_f, v0_f, st0_e, pwr_e)
+    rng = np.random.default_rng(5)
+    dirs = type(params_e)(*(tree_map(
+        (lambda t: t.abs() * torch.as_tensor(rng.standard_normal(tuple(t.shape)), dtype=f64,
+                                             device=dev))
+        if name in ("species", "rf", "eq") else torch.zeros_like, sub)
+        for name, sub in zip(params_e._fields, params_e)))
+    dd = sum(float((g * d).sum()) for g, d in zip(grads_f, tree_leaves(dirs)))
+    fd_runs = {}
+    for sgn in (1.0, -1.0):
+        p_ = tree_map(lambda p, d: p + sgn * FD_EPS * d, params_e, dirs)
+        with torch.no_grad():
+            r_ = trace_rays(cfg_f, p_, v0_f, st0_e, pwr_e)
+        fd_runs[sgn] = (float(loss_of(r_)), r_.npoints.tolist())
+    require(fd_runs[1.0][1] == fd_runs[-1.0][1] == [EQDSK_FD_STEPS + 1] * v0_e.shape[0],
+            f"npoints at +-eps {fd_runs[1.0][1]} {fd_runs[-1.0][1]}")
+    fd = (fd_runs[1.0][0] - fd_runs[-1.0][0]) / (2 * FD_EPS)
+    fd_rel = abs(dd - fd) / abs(fd)
+    require(fd_rel <= FD_RTOL, f"EQDSK directional derivative {dd!r} vs FD {fd!r}: {fd_rel:.3e}")
+    print(f"phase 16 EQDSK gradient check, {v0_e.shape[0]} rays x {EQDSK_FD_STEPS} steps: loss "
+          f"{float(loss_f):.12e}, directional derivative {dd:.10e} vs central difference "
+          f"{fd:.10e} (eps {FD_EPS} of each leaf), rel diff {fd_rel:.3e} (bound {FD_RTOL})")
+    require(fused_slab.LAUNCHES == launches_before,
+            "phases 14-16 launched the slab kernel")
+    print("phases 14-16: route plain throughout, no kernel launch counted")
+
+
 def main():
     t_start = time.perf_counter()
     # phase 1: the device
@@ -210,6 +500,12 @@ def main():
           f"count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--only-spline" in sys.argv[1:]:
+        paths = []
+        spline_phases(card, torch.device("cuda", 0), paths)
+        print(f"total wall time {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"paths": paths}))
+        return 0
 
     from rays_tpu_torch import examples, run as runner
     from rays_tpu_torch.core.types import tree_leaves, tree_map, tree_to
@@ -439,11 +735,14 @@ def main():
         report_bound("phase 8 damped", name, ops_d, N_FILL, cfg_d.nv, dt, t_fill)
     del vf, stf, wf
 
-    # phase 9: the training step of __graft_entry__.py on one GPU
+    # phase 9: the training step of __graft_entry__.py on one GPU, at
+    # TRAIN_STEPS of the example's 400 steps (the rays are absorbed at
+    # 293-329 points, so the cut run ends on the step budget)
+    cfg_t = dataclasses.replace(cfg_d, nstep_max=TRAIN_STEPS)
     xmin, xmax = float(params_d.eq.xmin), float(params_d.eq.xmax)
 
     def loss_of(res, p):
-        prof = calculate_deposition_profile(cfg_d, p, res, "Ptotal_x", n_bins=N_BINS,
+        prof = calculate_deposition_profile(cfg_t, p, res, "Ptotal_x", n_bins=N_BINS,
                                             xmin=xmin, xmax=xmax)
         return ((res.end_ray_vec[:, 0:3] ** 2 * res.initial_ray_power[:, None]).sum()
                 + (prof.profile ** 2).sum())
@@ -459,7 +758,7 @@ def main():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        loss = loss_of(trace_rays(cfg_d, pg, v, st, w), pg)
+        loss = loss_of(trace_rays(cfg_t, pg, v, st, w), pg)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
@@ -471,7 +770,7 @@ def main():
     def kernel_loss(p, v, st, w):
         before = fused_slab.LAUNCHES
         with torch.no_grad():
-            res = trace_rays(cfg_d, p, v, st, w)
+            res = trace_rays(cfg_t, p, v, st, w)
             out = loss_of(res, p)
         require(fused_slab.LAUNCHES > before, "the kernel forward did not launch the kernel")
         return out, res
@@ -485,8 +784,8 @@ def main():
     loss_rel = abs(float(lossk) - float(loss9)) / abs(float(loss9))
     require(loss_rel <= LOSS_RTOL,
             f"kernel-forward loss {float(lossk)!r} vs autograd {float(loss9)!r}: {loss_rel:.3e}")
-    print(f"phase 9 training step {N_RAYS} rays x {cfg_d.nstep_max} steps f64 "
-          f"(trajectories on, {N_BINS} bins): loss {float(loss9):.12e}, forward "
+    print(f"phase 9 training step {N_RAYS} rays x {cfg_t.nstep_max} steps f64 "
+          f"(of the example's {cfg_d.nstep_max}; trajectories on, {N_BINS} bins): loss {float(loss9):.12e}, forward "
           f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, peak memory {peak / 2**30:.2f} GiB; "
           f"{n_leaves} leaf gradients all finite; kernel-forward loss rel diff "
           f"{loss_rel:.3e} (bound {LOSS_RTOL})")
@@ -515,37 +814,16 @@ def main():
     fd = (float(lp) - float(lm)) / (2 * FD_EPS)
     fd_rel = abs(dd_ad - fd) / abs(fd)
     require(fd_rel <= FD_RTOL, f"directional derivative {dd_ad!r} vs FD {fd!r}: {fd_rel:.3e}")
-    print(f"phase 9 gradient check, 3 rays x {cfg_d.nstep_max} steps: loss "
+    print(f"phase 9 gradient check, 3 rays x {cfg_t.nstep_max} steps: loss "
           f"{float(loss3):.12e}, directional derivative {dd_ad:.10e} vs central "
           f"difference {fd:.10e} (eps {FD_EPS} of each leaf), rel diff {fd_rel:.3e} "
           f"(bound {FD_RTOL}); npoints at +-eps {rp.npoints.tolist()}")
 
     # ---- phases 10-13: the paths without a kernel, plain PyTorch on the card ----
     from rays_tpu_torch.results.ascii import read_results_ld
-    from rays_tpu_torch.tracing import rk45
     from rays_tpu_torch.tracing.trace import route
 
     paths = []
-
-    def plain_run(cfg_, params_, v_, st_, w_):
-        """trace_rays on a config that takes the plain route on the card:
-        (results, ms by CUDA events, (loops, host reads, attempts,
-        rejected) of the substep loop, peak bytes).  No kernel launch."""
-        require(route(cfg_, False, v_.device) == "plain", "expected the plain route")
-        before = fused_slab.LAUNCHES
-        rk45.stats = rk45.SubstepStats()
-        torch.cuda.reset_peak_memory_stats()
-        with torch.no_grad():
-            ms, res = timed(lambda: trace_rays(cfg_, params_, v_, st_, w_))
-        totals = rk45.stats.totals()
-        rk45.stats = None
-        require(fused_slab.LAUNCHES == before, "the plain route launched the kernel")
-        require(all(t.is_cuda for t in res), "results left the card")
-        return res, ms, totals, torch.cuda.max_memory_allocated()
-
-    def flag_counts(res):
-        codes, counts = torch.unique(res.stop_flag, return_counts=True)
-        return {flag_string(c).strip(): n for c, n in zip(codes.tolist(), counts.tolist())}
 
     def substep_report(totals, n_rays, n_outer):
         loops, reads, attempts, rejected = totals
@@ -580,18 +858,12 @@ def main():
     # phase 11: the CLI as a user calls it (python -m, the default device) on
     # the Solovev namelist, in a temporary directory
     label = cfg_s.run_label
-    root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "solovev_ECH_90GHz.in")
         with open(path, "w") as f:
             f.write(examples.SOLOVEV_ECH_90GHZ
                     + "&ray_results_list\n write_results_list_directed=.true.\n/\n")
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-        cli = subprocess.run([sys.executable, "-m", "rays_tpu_torch.run", path, "--netcdf"],
-                             cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
-        require(cli.returncode == 0, f"the Solovev CLI failed:\n{cli.stdout}\n{cli.stderr}")
-        require("device: cuda" in cli.stdout, f"the CLI did not run on the card:\n{cli.stdout}")
+        run_cli(path, tmp)
         nc = read_results_nc(os.path.join(tmp, f"run_results.{label}.nc"))
         ld = read_results_ld(os.path.join(tmp, f"run_results.{label}"))
         with open(os.path.join(tmp, f"log.RAYS.{label}")) as f:
@@ -743,6 +1015,9 @@ def main():
     print(f"phase 13 SG gradient check, 3 rays x {SG_FD_STEPS} outer steps: loss "
           f"{float(loss_f):.12e}, directional derivative {dd_sg:.10e} vs central difference "
           f"{fd_sg:.10e} (eps {FD_EPS} of each leaf), rel diff {fd_sg_rel:.3e} (bound {FD_RTOL})")
+
+    # ---- phases 14-16: the spline geometries, plain PyTorch on the card ----
+    spline_phases(card, dev, paths)
 
     total_s = time.perf_counter() - t_start
     print(f"total wall time {total_s:.1f} s")

@@ -1,12 +1,13 @@
 """Build (Config, Params) from a parsed namelist dict
 (``rays_tpu.config.schema``).
 
-Ports the species, rf, ode, limits, slab, solovev and the two matching
-ray-init parts of ``from_namelist``.  Coefficients are computed on the host in numpy
-float64, exactly as the JAX package computes them, and only then become
-tensors of the requested device and dtype.  Other equilibrium and
-ray-init models raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+Every equilibrium model (slab, solovev, axisym_toroid, multiple_mirror)
+and every ray-init model of the JAX package's ``from_namelist``.
+Coefficients and spline tables are computed on the host in float64, as the
+JAX package computes them, and only then become tensors of the requested
+device and dtype.  The spline geometries read data files: the G-EQDSK file
+by the name the namelist gives, the mirror field netCDF and the ray-init
+file relative to ``input_dir``.
 """
 
 from __future__ import annotations
@@ -26,17 +27,6 @@ from rays_tpu_torch.rayinit import slab as slab_init_mod
 from rays_tpu_torch.rayinit import solovev as solovev_init_mod
 
 NSPEC0 = 5  # max ion species (species_m.f90:25)
-
-_NOT_PORTED_EQ = {
-    "axisym_toroid": "ROADMAP A13",
-    "multiple_mirror": "ROADMAP A13",
-}
-_NOT_PORTED_INIT = {
-    "axisym_toroid_ray_init_R_Z_nphi_ntheta": "ROADMAP A13",
-    "one_ray_init_XYZ_n_direction": "ROADMAP A13",
-    "one_ray_init_XYZ_k_direction": "ROADMAP A13",
-    "file_input_ray_init": "ROADMAP A13",
-}
 
 
 def _arr(group, key, n, default=0.0, base=0):
@@ -189,6 +179,122 @@ def _solovev_from_namelist(nml, ns):
     return static, p
 
 
+def _profile_knots(nml, static):
+    """(ne_knots, te_knots, ti_knots) of the spline profile models, each
+    (2, K) rows (f, m); a (2, 4) block of zeros where a model is unused."""
+    from rays_tpu_torch.models.axisym_toroid import build_spline_knots
+
+    ne_knots = te_knots = ti_knots = torch.zeros((2, 4), dtype=torch.float64)
+    if static.density_prof_model == "density_spline_interp":
+        gd = nml.get("density_spline_interp_list", {})
+        ngrid = int(_get(gd, "ngrid", 0))
+        ne_knots = build_spline_knots(
+            _arr(gd, "ne_in", max(ngrid, 4), base=1)[:ngrid])
+    if "temperature_spline_interp" in static.temperature_prof_model:
+        gt = nml.get("temperature_spline_interp_list", {})
+        ngrid = int(_get(gt, "ngrid", 0))
+        te_knots = build_spline_knots(
+            _arr(gt, "te_in", max(ngrid, 4), base=1)[:ngrid])
+        ti_knots = build_spline_knots(
+            _arr(gt, "ti_in", max(ngrid, 4), base=1)[:ngrid])
+    return ne_knots, te_knots, ti_knots
+
+
+def _axisym_toroid_from_namelist(nml, ns):
+    from rays_tpu_torch.models import axisym_toroid as at
+
+    g = nml.get("axisym_toroid_eq_list", {})
+    mag_model = _get(g, "magnetics_model", "solovev_magnetics")
+    static = at.AxisymToroidStatic(
+        magnetics_model=mag_model,
+        density_prof_model=_get(g, "density_prof_model", "parabolic"),
+        temperature_prof_model=tuple(
+            _strlist(g, "temperature_prof_model", ns, "zero")),
+    )
+
+    if mag_model == "solovev_magnetics":
+        gm = nml.get("solovev_magnetics_list", {})
+        mag = at.SolovevMagParams(
+            rmaj=_get(gm, "rmaj", 1.0), kappa=_get(gm, "kappa", 1.0),
+            bphi0=_get(gm, "bphi0", 1.0), iota0=_get(gm, "iota0", 0.5),
+            outer_bound=_get(gm, "outer_boundary", 1.3),
+        )
+        box = (_get(gm, "box_rmin", 0.05), _get(gm, "box_rmax", 10.0),
+               _get(gm, "box_zmin", -10.0), _get(gm, "box_zmax", 10.0))
+    elif mag_model in ("eqdsk_magnetics_spline_interp",
+                       "eqdsk_magnetics_lin_interp"):
+        gm = nml.get("eqdsk_magnetics_spline_interp_list",
+                     nml.get("eqdsk_magnetics_lin_interp_list", {}))
+        fname = _get(gm, "eqdsk_file_name")
+        if fname is None:
+            raise ValueError("eqdsk magnetics needs eqdsk_file_name")
+        if mag_model == "eqdsk_magnetics_lin_interp":
+            mag, geq = at.build_eqdsk_lin_mag_params(fname)
+        else:
+            mag, geq = at.build_eqdsk_mag_params(fname)
+        # the box of an EQDSK run is the file's
+        box = (geq.rboxlft, geq.rboxlft + geq.rboxlen,
+               geq.zoff - geq.zboxlen / 2.0, geq.zoff + geq.zboxlen / 2.0)
+    else:
+        raise NotImplementedError(f"magnetics_model {mag_model}")
+
+    ne_knots, te_knots, ti_knots = _profile_knots(nml, static)
+    p = at.AxisymToroidParams(
+        mag=mag,
+        plasma_psi_limit=_get(g, "plasma_psi_limit", 1.0),
+        alphan1=_get(g, "alphan1", 1.0), alphan2=_get(g, "alphan2", 2.0),
+        d_scrape_off=_get(g, "d_scrape_off", 0.0),
+        ne_knots=ne_knots,
+        alphat1=_arr(g, "alphat1", ns, 1.0),
+        alphat2=_arr(g, "alphat2", ns, 2.0),
+        t_scrape_off=_get(g, "t_scrape_off", 0.0),
+        te_knots=te_knots, ti_knots=ti_knots,
+        box_rmin=box[0], box_rmax=box[1], box_zmin=box[2], box_zmax=box[3],
+    )
+    return static, p
+
+
+def _multiple_mirror_from_namelist(nml, ns, input_dir="."):
+    from rays_tpu_torch.models import multiple_mirror as mm
+
+    g = nml.get("multiple_mirror_eq_list", {})
+    static = mm.MultipleMirrorStatic(
+        magnetics_model=_get(g, "magnetics_model",
+                             "mirror_magnetics_spline_interp"),
+        density_prof_model=_get(g, "density_prof_model", "parabolic"),
+        temperature_prof_model=tuple(
+            _strlist(g, "temperature_prof_model", ns, "zero")),
+    )
+    gm = nml.get("mirror_magnetics_spline_interp_list", {})
+    fname = _get(gm, "mirror_field_nc_file")
+    if fname is None:
+        raise ValueError("multiple_mirror needs mirror_field_NC_file")
+    if not os.path.isabs(fname):
+        fname = os.path.join(input_dir, fname)
+    (br_sp, bz_sp, aphi_sp, aphi_lufs, box,
+     field_cells) = mm.load_field_file(fname)
+
+    ne_knots, te_knots, ti_knots = _profile_knots(nml, static)
+    p = mm.MultipleMirrorParams(
+        br_spline=br_sp, bz_spline=bz_sp, aphi_spline=aphi_sp,
+        aphi_lufs=aphi_lufs,
+        plasma_aphin_limit=_get(g, "plasma_aphin_limit", 1.0),
+        alphan1=_get(g, "alphan1", 1.0), alphan2=_get(g, "alphan2", 2.0),
+        aphin0_d=_get(g, "aphin0_d", 0.05), delta_d=_get(g, "delta_d", 0.05),
+        d_scrape_off=_get(g, "d_scrape_off", 0.0),
+        ne_knots=ne_knots,
+        alphat1=_arr(g, "alphat1", ns, 1.0),
+        alphat2=_arr(g, "alphat2", ns, 2.0),
+        aphin0_t=_arr(g, "aphin0_t", ns, 0.05),
+        delta_t=_arr(g, "delta_t", ns, 0.05),
+        t_scrape_off=_get(g, "t_scrape_off", 0.0),
+        te_knots=te_knots, ti_knots=ti_knots,
+        box_rmax=box[0], box_zmin=box[1], box_zmax=box[2],
+        field_cells=field_cells,
+    )
+    return static, p
+
+
 def _slab_init_from_namelist(nml):
     g = nml.get("simple_slab_ray_init_list", {})
     return slab_init_mod.SlabInit(
@@ -228,11 +334,55 @@ def _solovev_init_from_namelist(nml):
     )
 
 
+def _axisym_init_from_namelist(nml):
+    from rays_tpu_torch.rayinit.axisym_toroid import AxisymToroidInit
+
+    g = nml.get("axisym_toroid_ray_init_r_z_nphi_ntheta_list", {})
+    return AxisymToroidInit(
+        n_r_launch=int(_get(g, "n_r_launch", 1)),
+        r_launch0=float(_get(g, "r_launch0", 0.0)),
+        dr_launch=float(_get(g, "dr_launch", 0.0)),
+        n_z_launch=int(_get(g, "n_z_launch", 1)),
+        z_launch0=float(_get(g, "z_launch0", 0.0)),
+        dz_launch=float(_get(g, "dz_launch", 0.0)),
+        n_rindex_theta=int(_get(g, "n_rindex_theta", 1)),
+        rindex_theta0=float(_get(g, "rindex_theta0", 0.0)),
+        delta_rindex_theta=float(_get(g, "delta_rindex_theta", 0.0)),
+        n_rindex_phi=int(_get(g, "n_rindex_phi", 1)),
+        rindex_phi0=float(_get(g, "rindex_phi0", 0.0)),
+        delta_rindex_phi=float(_get(g, "delta_rindex_phi", 0.0)),
+    )
+
+
+def _one_ray_init_from_namelist(nml):
+    from rays_tpu_torch.rayinit.one_ray import OneRayInit
+
+    g = nml.get("one_ray_init_xyz_k_direction_list", {})
+    return OneRayInit(
+        x=float(_get(g, "x", 0.0)), y=float(_get(g, "y", 0.0)),
+        z=float(_get(g, "z", 0.0)),
+        nx=float(_get(g, "nx", 0.0)), ny=float(_get(g, "ny", 0.0)),
+        nz=float(_get(g, "nz", 0.0)),
+        use_this_n_vec=bool(_get(g, "use_this_n_vec", False)),
+    )
+
+
+def _tree_tensor(tree, device, dtype):
+    """Host values, float64 tensors and nested NamedTuples of them -> the
+    same tree of tensors on ``device`` in ``dtype``; ``None`` stays."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_tensor(x, device, dtype) for x in tree))
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device=device, dtype=dtype)
+    return _tensor(tree, device, dtype)
+
+
 def from_namelist(nml: dict, input_dir=".", device="cpu", dtype=torch.float64):
     """Parsed namelist dict -> (Config, Params), Params on ``device`` in
-    ``dtype``.  ``input_dir`` is accepted for the JAX signature; no ported
-    model reads data files yet."""
-    del input_dir
+    ``dtype``.  ``input_dir`` resolves relative data-file paths (the mirror
+    field netCDF, the ray-init file)."""
     diag = nml.get("diagnostics_list", {})
     rf = nml.get("rf_list", {})
     damp = nml.get("damping_list", {})
@@ -250,22 +400,32 @@ def from_namelist(nml: dict, input_dir=".", device="cpu", dtype=torch.float64):
         eq_static, eq_params = _slab_from_namelist(nml, ns)
     elif equilib_model == "solovev":
         eq_static, eq_params = _solovev_from_namelist(nml, ns)
+    elif equilib_model == "axisym_toroid":
+        eq_static, eq_params = _axisym_toroid_from_namelist(nml, ns)
+    elif equilib_model == "multiple_mirror":
+        eq_static, eq_params = _multiple_mirror_from_namelist(nml, ns, input_dir)
     else:
-        where = _NOT_PORTED_EQ.get(equilib_model)
-        if where is None:
-            raise NotImplementedError(f"equilib_model {equilib_model}")
-        raise NotImplementedError(
-            f"equilib_model {equilib_model!r} is not ported yet ({where})")
+        raise NotImplementedError(f"equilib_model {equilib_model}")
 
     ray_init_model = _get(ri, "ray_init_model", "simple_slab")
     if ray_init_model == "simple_slab":
         rayinit_static = _slab_init_from_namelist(nml)
     elif ray_init_model == "solovev_ray_init_nphi_ntheta":
         rayinit_static = _solovev_init_from_namelist(nml)
+    elif ray_init_model == "axisym_toroid_ray_init_R_Z_nphi_ntheta":
+        rayinit_static = _axisym_init_from_namelist(nml)
+    elif ray_init_model in ("one_ray_init_XYZ_n_direction",
+                            "one_ray_init_XYZ_k_direction"):
+        ray_init_model = "one_ray_init_XYZ_k_direction"
+        rayinit_static = _one_ray_init_from_namelist(nml)
+    elif ray_init_model == "file_input_ray_init":
+        from rays_tpu_torch.rayinit.file_input import FileInputInit
+
+        label = str(_get(diag, "run_label", "run"))
+        rayinit_static = FileInputInit(
+            filename=os.path.join(input_dir, f"ray_init_{label}.in"))
     else:
-        where = _NOT_PORTED_INIT.get(ray_init_model, "not in the ROADMAP")
-        raise NotImplementedError(
-            f"ray_init_model {ray_init_model!r} is not ported yet ({where})")
+        raise NotImplementedError(f"ray_init_model {ray_init_model!r}")
 
     cfg = Config(
         run_label=str(_get(diag, "run_label", "run")),
@@ -308,7 +468,7 @@ def from_namelist(nml: dict, input_dir=".", device="cpu", dtype=torch.float64):
         species=build_species_params(qs, ms, eta, n0, t0_ev, omgrf, device, dtype),
         rf=RFParams(omgrf=t(omgrf), k0=t(omgrf / constants.CLIGHT),
                     omgrf_ref=t(omgrf)),
-        eq=type(eq_params)(*(t(x) for x in eq_params)),
+        eq=_tree_tensor(eq_params, device, dtype),
         ode=OdeParams(
             ds=t(_get(ode, "ds", 1.0e-3)),
             s_max=t(_get(ode, "s_max", 1.0)),

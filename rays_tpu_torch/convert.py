@@ -13,7 +13,11 @@ import numpy as np
 import torch
 
 from rays_tpu_torch.core import types
-from rays_tpu_torch.models import slab, solovev
+from rays_tpu_torch.models import axisym_toroid, multiple_mirror, slab, solovev
+from rays_tpu_torch.ops import splines
+from rays_tpu_torch.rayinit import axisym_toroid as axisym_init
+from rays_tpu_torch.rayinit import file_input as file_init
+from rays_tpu_torch.rayinit import one_ray as one_ray_init
 from rays_tpu_torch.rayinit import slab as slab_init
 from rays_tpu_torch.rayinit import solovev as solovev_init
 
@@ -25,15 +29,33 @@ _PARAM_TYPES = {
     "Limits": types.Limits,
     "SlabParams": slab.SlabParams,
     "SolovevParams": solovev.SolovevParams,
+    "AxisymToroidParams": axisym_toroid.AxisymToroidParams,
+    "SolovevMagParams": axisym_toroid.SolovevMagParams,
+    "EqdskMagParams": axisym_toroid.EqdskMagParams,
+    "EqdskLinMagParams": axisym_toroid.EqdskLinMagParams,
+    "MultipleMirrorParams": multiple_mirror.MultipleMirrorParams,
+    "Spline1D": splines.Spline1D,
+    "Spline2D": splines.Spline2D,
+    "CellSpline2D": splines.CellSpline2D,
 }
-_EQ_STATIC = {"slab": slab.SlabStatic, "solovev": solovev.SolovevStatic}
-_INIT_STATIC = {"simple_slab": slab_init.SlabInit,
-                "solovev_ray_init_nphi_ntheta": solovev_init.SolovevInit}
+_EQ_STATIC = {"slab": slab.SlabStatic, "solovev": solovev.SolovevStatic,
+              "axisym_toroid": axisym_toroid.AxisymToroidStatic,
+              "multiple_mirror": multiple_mirror.MultipleMirrorStatic}
+_INIT_STATIC = {
+    "simple_slab": slab_init.SlabInit,
+    "solovev_ray_init_nphi_ntheta": solovev_init.SolovevInit,
+    "axisym_toroid_ray_init_R_Z_nphi_ntheta": axisym_init.AxisymToroidInit,
+    "one_ray_init_XYZ_k_direction": one_ray_init.OneRayInit,
+    "file_input_ray_init": file_init.FileInputInit,
+}
 
 
 def params_from_numpy(tree, device="cpu", dtype=torch.float64):
     """JAX Params of numpy leaves -> the port's Params on ``device`` in
-    ``dtype``."""
+    ``dtype``.  ``None`` entries (a spline the file gives no data for) stay
+    ``None``."""
+    if tree is None:
+        return None
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         name = type(tree).__name__
         cls = _PARAM_TYPES.get(name)
@@ -52,15 +74,12 @@ def config_from_dict(d):
     d = dict(d)
     d.pop("fused_kernel", None)
     if d.get("equilib_model") not in _EQ_STATIC:
-        raise NotImplementedError(
-            f"equilib_model {d.get('equilib_model')!r} is not ported yet "
-            "(ROADMAP A13)")
+        raise NotImplementedError(f"equilib_model {d.get('equilib_model')!r}")
     if d.get("ray_init_model") not in _INIT_STATIC:
-        raise NotImplementedError(
-            f"ray_init_model {d.get('ray_init_model')!r} is not ported yet "
-            "(ROADMAP A13)")
-    eq = dict(d["eq_static"])
-    eq["t_prof_model"] = tuple(eq["t_prof_model"])
+        raise NotImplementedError(f"ray_init_model {d.get('ray_init_model')!r}")
+    # asdict turns the tuples of per-species model names into lists
+    eq = {k: tuple(v) if isinstance(v, list) else v
+          for k, v in d["eq_static"].items()}
     d["eq_static"] = _EQ_STATIC[d["equilib_model"]](**eq)
     d["rayinit_static"] = _INIT_STATIC[d["ray_init_model"]](**d["rayinit_static"])
     return types.Config(**d)

@@ -70,8 +70,12 @@ class Limits(NamedTuple):
 
 class Params(NamedTuple):
     """The full parameter bundle for a run.  ``eq`` is a model-specific
-    NamedTuple (``models.slab.SlabParams``, ``models.solovev.SolovevParams``)
-    selected by ``Config.equilib_model``."""
+    NamedTuple (``models.slab.SlabParams``, ``models.solovev.SolovevParams``,
+    ``models.axisym_toroid.AxisymToroidParams``,
+    ``models.multiple_mirror.MultipleMirrorParams``) selected by
+    ``Config.equilib_model``.  The spline geometries nest further tuples
+    (splines, cell tables) and may hold ``None`` where a file gives no
+    data (no Q profile, no cell table)."""
 
     species: SpeciesParams
     rf: RFParams
@@ -103,7 +107,7 @@ class Config:
     ray_param: str = "arcl"        # arcl | time
 
     # equilibrium
-    equilib_model: str = "slab"    # slab | solovev
+    equilib_model: str = "slab"    # slab | solovev | axisym_toroid | multiple_mirror
     eq_static: Any = None          # model-specific frozen dataclass
 
     # damping
@@ -174,7 +178,10 @@ class Config:
 
 def tree_to(tree, device=None, dtype=None):
     """Move every floating-point tensor leaf of a NamedTuple tree to
-    ``device`` and ``dtype`` (integer leaves keep their dtype)."""
+    ``device`` and ``dtype`` (integer leaves keep their dtype, ``None``
+    stays ``None``)."""
+    if tree is None:
+        return None
     if isinstance(tree, torch.Tensor):
         if tree.is_floating_point():
             return tree.to(device=device, dtype=dtype)
@@ -187,14 +194,19 @@ def tree_to(tree, device=None, dtype=None):
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` to every leaf of a NamedTuple tree, with the matching
     leaves of the trees in ``rest`` (of the same structure) as further
-    arguments."""
+    arguments.  ``None`` entries stay ``None``."""
+    if tree is None:
+        return None
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree):
-    """Flatten a NamedTuple tree of tensors into a list of its leaves."""
+    """Flatten a NamedTuple tree of tensors into a list of its leaves
+    (``None`` entries are no leaves)."""
+    if tree is None:
+        return []
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return [leaf for x in tree for leaf in tree_leaves(x)]
     return [tree]

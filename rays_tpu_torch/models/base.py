@@ -8,8 +8,13 @@ A model module provides, on a batch of points x (B, 3):
   geom_err(static, params, x) -> (B,) int32 StopCode, geometry only;
   err(static, params, species, x) -> geometry + positivity.
 
-The slab and the Solovev tokamak are ported; the spline geometries are
-ROADMAP A13.
+A model may also provide ``fields_jac_geom`` -> (values, jacobians,
+geometry code) from one evaluation of its magnetics; the spline geometries
+do, so that a ray step fetches each spline row once.
+
+All four models of the JAX package are here: the slab, the Solovev
+tokamak, the generic axisymmetric toroid (Solovev, EQDSK spline and EQDSK
+bilinear magnetics) and the multiple mirror.
 """
 
 from __future__ import annotations
@@ -30,9 +35,15 @@ def get_eq_model(name: str):
         from rays_tpu_torch.models import solovev
 
         return solovev
-    raise NotImplementedError(
-        f"equilib_model {name!r} is not ported yet (ROADMAP A13: "
-        f"axisym_toroid, multiple_mirror)")
+    if name == "axisym_toroid":
+        from rays_tpu_torch.models import axisym_toroid
+
+        return axisym_toroid
+    if name == "multiple_mirror":
+        from rays_tpu_torch.models import multiple_mirror
+
+        return multiple_mirror
+    raise NotImplementedError(f"equilib_model {name!r}")
 
 
 def eq_fields(cfg, params, x):
@@ -77,9 +88,15 @@ def equilibrium(cfg, params, x) -> EqPoint:
     jacobians, validity from the geometry check and the positivity of the
     same ns and ts."""
     model = get_eq_model(cfg.equilib_model)
-    (bvec, ns, ts), (jb, jn, jt) = model.fields_and_jac(
-        cfg.eq_static, params.eq, params.species, x)
-    err = _combine_err(model.geom_err(cfg.eq_static, params.eq, x), ns, ts)
+    fused = getattr(model, "fields_jac_geom", None)
+    if fused is not None:
+        (bvec, ns, ts), (jb, jn, jt), geom = fused(
+            cfg.eq_static, params.eq, params.species, x)
+    else:
+        (bvec, ns, ts), (jb, jn, jt) = model.fields_and_jac(
+            cfg.eq_static, params.eq, params.species, x)
+        geom = model.geom_err(cfg.eq_static, params.eq, x)
+    err = _combine_err(geom, ns, ts)
     # jb[b, j, i] = dB_j/dx_i  ->  gradb[b, i, j], the reference convention
     raw = RawEq(bvec=bvec, gradb=jb.transpose(1, 2), ns=ns, gradns=jn,
                 ts=ts, gradts=jt, err=err)

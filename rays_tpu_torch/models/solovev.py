@@ -117,14 +117,12 @@ def psi(p: SolovevParams, rvec):
     return ps, gradpsi, ps / psib, gradpsi / psib
 
 
-def fields_and_jac(static: SolovevStatic, p: SolovevParams, species, rvec):
-    """Values and jacobians at rvec (B, 3).
-
-    Returns ((bvec (B,3), ns (B,S), ts (B,S)), (jb (B,3,3), jn (B,S,3),
-    jt (B,S,3))), where jac[..., i] = d(value)/dx_i as in the JAX package's
-    ``value_and_jacfwd`` of ``fields``."""
+def magnetics_and_jac(p, rvec):
+    """(bvec (B,3), jb (B,3,3), psiN (B,), dpsiN (B,3)) of the Solovev field
+    at rvec (B,3); ``p`` is any tuple with rmaj, kappa, bphi0, iota0 and
+    outer_bound (``SolovevParams``, or the magnetics parameters of
+    ``models/axisym_toroid``).  jb[b, j, i] = dB_j/dx_i."""
     x, y, z, r, drdx, drdy = _cyl(rvec)
-    zero = torch.zeros_like(r)
     bp0 = p.bphi0 * p.iota0
     a2 = (p.rmaj * p.kappa) ** 2
     br, bz, bphi = _b_cyl(p, r, z)
@@ -150,6 +148,17 @@ def fields_and_jac(static: SolovevStatic, p: SolovevParams, species, rvec):
     psib = psi_boundary(p)
     psiN = _psi_value(p, r, z) / psib
     dpsiN = torch.stack([r * bz * drdx, r * bz * drdy, -r * br], dim=-1) / psib
+    return bvec, jb, psiN, dpsiN
+
+
+def fields_and_jac(static: SolovevStatic, p: SolovevParams, species, rvec):
+    """Values and jacobians at rvec (B, 3).
+
+    Returns ((bvec (B,3), ns (B,S), ts (B,S)), (jb (B,3,3), jn (B,S,3),
+    jt (B,S,3))), where jac[..., i] = d(value)/dx_i as in the JAX package's
+    ``value_and_jacfwd`` of ``fields``."""
+    bvec, jb, psiN, dpsiN = magnetics_and_jac(p, rvec)
+    zero = torch.zeros_like(psiN)
 
     n0s, t0s = species.n0s, species.t0s
     m = static.dens_prof_model

@@ -2,12 +2,13 @@
 post_process_lib/deposition_profiles_m.f90), batched over rays.
 
 A per-geometry registry of profiles ('Ptotal_x' for the slab,
-'Ptotal_psi' for the Solovev tokamak), a coordinate for each trajectory
+'Ptotal_psi' for the Solovev tokamak and the axisymmetric toroid,
+'Ptotal_rho' for an EQDSK toroid whose file has a Q profile,
+'Ptotal_AphiN' for the multiple mirror), a coordinate for each trajectory
 point, the absorbed power per point (initial_ray_power *
 v[:, damping_slot], frozen past npoints so that the tail adds nothing),
 the uniform-grid binning of ``ops/binning.py`` for every ray, then the sum
-over rays (:229-293).  The coordinates of the
-spline geometries come with those geometries (ROADMAP A13).
+over rays (:229-293).
 
 The binning holds a (rays, segments, bins) tensor: 3.4 GB at float64 for
 32,768 rays x 400 steps x 32 bins, several of which autograd would keep.
@@ -42,23 +43,33 @@ def _coordinate_fn(cfg, params, which: str):
     """Trajectory positions (..., 3) -> profile coordinate (...)."""
     if which == "Ptotal_x":
         return lambda r: r[..., 0]
-    if which == "Ptotal_psi" and cfg.equilib_model == "solovev":
+    if which not in _GRIDS:
+        raise ValueError(f"unknown deposition profile {which}")
+
+    def on_points(fn):
+        # the models take (B, 3); the trajectory is (B, n_pts, 3)
+        return lambda r: fn(r.reshape(-1, 3)).reshape(r.shape[:-1])
+
+    model = cfg.equilib_model
+    if which == "Ptotal_psi" and model == "solovev":
         from rays_tpu_torch.models import solovev
 
         return lambda r: solovev.psi(params.eq, r)[2]
-    # (profile, the unported geometries that define it, each with its
-    # ROADMAP item)
-    owners = {"Ptotal_psi": {"axisym_toroid": "A13"},
-              "Ptotal_rho": {"axisym_toroid": "A13"},
-              "Ptotal_AphiN": {"multiple_mirror": "A13"}}
-    if which not in owners:
-        raise ValueError(f"unknown deposition profile {which}")
-    item = owners[which].get(cfg.equilib_model)
-    if item is None:
-        raise ValueError(f"{which} not available for {cfg.equilib_model}")
-    raise NotImplementedError(
-        f"deposition profile {which} of {cfg.equilib_model} is not ported yet "
-        f"(ROADMAP {item})")
+    if which == "Ptotal_psi" and model == "axisym_toroid":
+        from rays_tpu_torch.models import axisym_toroid as at
+
+        return on_points(lambda r: at.magnetics(cfg.eq_static, params.eq, r)[2])
+    if which == "Ptotal_rho" and model == "axisym_toroid":
+        # rho = sqrt(normalized toroidal flux); EQDSK spline magnetics with
+        # a Q profile only (deposition_profiles_m.f90:479-499)
+        from rays_tpu_torch.models import axisym_toroid as at
+
+        return on_points(lambda r: at.rho_and_grad(cfg.eq_static, params.eq, r)[0])
+    if which == "Ptotal_AphiN" and model == "multiple_mirror":
+        from rays_tpu_torch.models import multiple_mirror as mm
+
+        return on_points(lambda r: mm.magnetics(params.eq, r)[2])
+    raise ValueError(f"{which} not available for {model}")
 
 
 def calculate_deposition_profile(cfg, params, results, which: str,

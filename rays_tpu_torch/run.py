@@ -32,8 +32,19 @@ def init_rays(cfg, params):
         from rays_tpu_torch.rayinit.solovev import solovev_ray_init_nphi_ntheta
 
         return solovev_ray_init_nphi_ntheta(cfg, params, cfg.rayinit_static)
-    raise NotImplementedError(
-        f"ray_init_model {cfg.ray_init_model!r} is not ported yet (ROADMAP A13)")
+    if cfg.ray_init_model == "axisym_toroid_ray_init_R_Z_nphi_ntheta":
+        from rays_tpu_torch.rayinit.axisym_toroid import axisym_toroid_ray_init
+
+        return axisym_toroid_ray_init(cfg, params, cfg.rayinit_static)
+    if cfg.ray_init_model == "one_ray_init_XYZ_k_direction":
+        from rays_tpu_torch.rayinit.one_ray import one_ray_init_xyz_k_direction
+
+        return one_ray_init_xyz_k_direction(cfg, params, cfg.rayinit_static)
+    if cfg.ray_init_model == "file_input_ray_init":
+        from rays_tpu_torch.rayinit.file_input import file_input_ray_init
+
+        return file_input_ray_init(cfg, params, cfg.rayinit_static)
+    raise NotImplementedError(f"ray_init_model {cfg.ray_init_model}")
 
 
 def setup_from(cfg, params, device, dtype):

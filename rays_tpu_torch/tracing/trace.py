@@ -71,8 +71,7 @@ def get_carried_step_fn(cfg):
 
 
 def check_supported(cfg):
-    """Raise for a config the port cannot trace, on every device: a
-    geometry of a later slice names its ROADMAP item."""
+    """Raise for a config the port cannot trace, on every device."""
     base.get_eq_model(cfg.equilib_model)
     get_step_fn(cfg)
     rhs_mod.check_ported(cfg)
@@ -89,8 +88,8 @@ def route(cfg, needs_grad, device) -> str:
     takes the kernel, unless gradients are asked for (the kernel has no
     backward; the JAX package's adjoint, too, is reverse mode through its
     plain scan).  Every other config the port supports (the adaptive
-    stepper, the Solovev tokamak, the equilibrium-gradient slots, the
-    autodiff derivatives) runs ``trace_batch`` on the card, as the JAX
+    stepper, the Solovev tokamak, the spline geometries, the
+    equilibrium-gradient slots, the autodiff derivatives) runs ``trace_batch`` on the card, as the JAX
     package runs them as plain XLA operations.  This is a choice, not a
     fallback: a kernel that fails to build or launch raises."""
     check_supported(cfg)

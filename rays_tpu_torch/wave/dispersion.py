@@ -117,6 +117,39 @@ def solve_nx_vs_ny_nz_by_bz(alpha, gamma, bunit, wave_mode, k_sign, ny, nz):
     return solve_n1_vs_n2_n3(alpha, gamma, wave_mode, k_sign, n2, n3)
 
 
+def solve_cold_nsq_vs_theta(alpha, gamma, theta):
+    """Appleton-Hartree-like n^2 roots vs the angle theta (B,) between n
+    and B (disp_solve_cold_nsq_vs_theta.f90:33-70).  Returns real (B,4):
+    [plus, minus, fast, slow]; entries may be negative (evanescent)."""
+    S, D, P, R, L = stix.rlsdp(alpha, gamma)
+    cos2 = torch.cos(theta) ** 2
+    sin2 = 1.0 - cos2
+    a = S * sin2 + P * cos2
+    b = -R * L * sin2 - P * S * (1.0 + cos2)
+    c = P * R * L
+    discr = b**2 - 4.0 * a * c
+    sqrt_d = torch.sqrt(discr.clamp_min(0.0))
+
+    b_neg = b < 0.0
+    denom_plus = -b + sqrt_d
+    denom_minus = -b - sqrt_d
+    plus = torch.where(b_neg, denom_plus / (2.0 * a), 2.0 * c / denom_minus)
+    minus = torch.where(b_neg, 2.0 * c / denom_plus, denom_minus / (2.0 * a))
+
+    fast_is_plus = plus.abs() <= minus.abs()
+    fast = torch.where(fast_is_plus, plus, minus)
+    slow = torch.where(fast_is_plus, minus, plus)
+    return torch.stack([plus, minus, fast, slow], dim=-1)
+
+
+def solve_n_vs_theta(alpha, gamma, wave_mode, k_sign, theta):
+    """n for the selected mode at angle theta
+    (dispersion_solvers_m.f90:169-231).  Returns (n, valid): valid is False
+    where n^2 < 0 (evanescent)."""
+    nsq = solve_cold_nsq_vs_theta(alpha, gamma, theta)[:, _MODE_INDEX[wave_mode]]
+    return k_sign * torch.sqrt(nsq.clamp_min(0.0)), nsq >= 0.0
+
+
 # --------------------------------------------------------------------------
 # Dispersion residual monitor — reference check_save.f90:163-235
 # --------------------------------------------------------------------------

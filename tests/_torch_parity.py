@@ -5,6 +5,7 @@ Inputs are built once on the JAX side and carried to the port through
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -82,3 +83,177 @@ def assert_scaled_close(got, ref, rtol, axis, what=""):
         err = np.abs(got[..., sl] - r) / scale
         assert np.all(err <= rtol), (
             f"{what} {name}: max scaled error {err.max():.3e} > {rtol}")
+
+
+# --------------------------------------------------------------------------
+# the spline geometries: input files and cases set up by both packages
+# --------------------------------------------------------------------------
+
+PROFILE_LISTS = """
+&density_spline_interp_list
+ ngrid=6, ne_in=1.0, 0.93, 0.74, 0.45, 0.2, 0.05
+/
+&temperature_spline_interp_list
+ ngrid=5, te_in=2.0, 1.7, 1.1, 0.5, 0.1, ti_in=1.0, 0.9, 0.6, 0.3, 0.04
+/
+"""
+
+MIRROR_TMPL = """
+&diagnostics_list
+ run_label='mirror', integrate_eq_gradients=.false.
+/
+&species_list
+ n0={N0}, spec_name(0)='electron', t0s(0)=200.,
+ spec_name(1)='deuterium', t0s(1)=50., eta(1)=1.
+/
+&rf_list
+ frf={FRF}, k0_sign=1, wave_mode='plus', ray_dispersion_model='cold',
+ ray_param='arcl', dispersion_resid_limit=0.1
+/
+&damping_list
+ damping_model='{DAMP}'
+/
+&equilibrium_list
+ equilib_model='multiple_mirror'
+/
+&multiple_mirror_eq_list
+ magnetics_model='mirror_magnetics_spline_interp', plasma_AphiN_limit=1.0,
+ density_prof_model='{DENS}', AphiN0_d=0.5, delta_d=0.15, d_scrape_off=0.05,
+ alphan1=1.0, alphan2=2.0,
+ temperature_prof_model={TEMP}, AphiN0_t=2*0.5, delta_t=2*0.2, t_scrape_off=0.02,
+ alphat1=2*1.0, alphat2=2*2.0
+/
+&mirror_magnetics_spline_interp_list
+ mirror_field_NC_file='Brz_fields.test.nc'
+/
+&ray_init_list
+ ray_init_model='file_input_ray_init', nray_max=20
+/
+&ode_list
+ ode_solver_name='RK4_ODE', nstep_max={NSTEP}, ds=2.e-3, s_max=4.0
+/
+"""
+
+# four candidates, Fortran column-major 3 x n; the third starts outside the
+# last uninterrupted flux surface and is dropped
+MIRROR_RAY_INIT = """
+&file_input_ray_init_list
+ n_rays_in=4,
+ rvec_in = 0.02,0.0,1.4,  0.0,0.03,1.5,  0.15,0.0,1.45,  -0.02,0.01,1.6,
+ rindex_vec_in = 0.3,0.0,1.0,  0.0,0.2,1.0,  0.2,0.0,1.0,  -0.3,0.1,1.0,
+ ray_pwr_wt_in = 1.0, 2.0, 1.0, 0.5
+/
+"""
+
+# a small coil set: four coils of radius 0.3 m along 4 m of axis, ~0.8-0.9 T
+# between them (the fundamental at 22 GHz, the second harmonic at 56 GHz)
+MIRROR_COILS = dict(coil_r=[0.3, 0.3, 0.3, 0.3], coil_z=[0.5, 1.5, 2.5, 3.5],
+                    coil_current=[6.0e5, 4.0e5, 4.0e5, 6.0e5])
+
+
+def write_solovev_geqdsk(path, n=65, with_q=False):
+    """A Solovev G-EQDSK file written by the JAX package's generator; with
+    ``with_q`` a smooth safety-factor profile is grafted on, so that the
+    rho coordinate maps exist (tests/test_axisym.py)."""
+    from rays_tpu.utils import solovev_2_eqdsk
+    from rays_tpu.utils.eqdsk_io import write_geqdsk
+
+    eq = solovev_2_eqdsk.solovev_geqdsk(rmaj=1.2, kappa=1.5, bphi0=2.2, iota0=0.3,
+                                        outer_bound=1.55, nrbox=n, nzbox=n)
+    if with_q:
+        eq = dataclasses.replace(eq, Q=1.1 + 2.4 * np.linspace(0.0, 1.0, n) ** 2)
+    write_geqdsk(str(path), eq)
+    return str(path)
+
+
+def write_mirror_inputs(directory, n_r=21, n_z=81, **fmt):
+    """The mirror field file (JAX generator), the ray-init file and
+    ``rays.in`` in ``directory``; returns the path of ``rays.in``."""
+    from rays_tpu.utils import mirror_magnetics
+
+    directory = str(directory)
+    mirror_magnetics.generate_field_file(
+        os.path.join(directory, "Brz_fields.test.nc"),
+        *(np.asarray(MIRROR_COILS[k]) for k in ("coil_r", "coil_z", "coil_current")),
+        n_r=n_r, n_z=n_z)
+    with open(os.path.join(directory, "ray_init_mirror.in"), "w") as f:
+        f.write(MIRROR_RAY_INIT)
+    return write_mirror_namelist(directory, **fmt)
+
+
+def write_mirror_namelist(directory, name="rays.in", extra="", **fmt):
+    args = dict(N0="2.0e19", FRF="56.e9", DAMP="no_damp", DENS="hyperbolic",
+                TEMP="2*'hyperbolic'", NSTEP=60)
+    args.update(fmt)
+    path = os.path.join(str(directory), name)
+    with open(path, "w") as f:
+        f.write(MIRROR_TMPL.format(**args) + extra)
+    return path
+
+
+def both_from_text(text, input_dir="."):
+    """((jax cfg, params), (port cfg, params)) of one namelist text, each
+    set up by its own package's importer."""
+    from rays_tpu.config import schema as jschema
+    from rays_tpu.config.namelist import parse_namelist as jparse
+    from rays_tpu_torch.config import schema as tschema
+    from rays_tpu_torch.config.namelist import parse_namelist as tparse
+
+    return (jschema.from_namelist(jparse(text), input_dir=input_dir),
+            tschema.from_namelist(tparse(text), input_dir=input_dir))
+
+
+def jax_launch(cfg, params):
+    """(v0, status0, pwr) of the JAX package's ray init for (cfg, params)."""
+    from rays_tpu import run as jrun
+    from rays_tpu.rayinit import vector as jvector
+
+    rvec0, rindex0, pwr = jrun.init_rays(cfg, params)
+    v0 = jvector.initial_ode_vectors(cfg, params, rvec0, rindex0)
+    return v0, jnp.zeros((v0.shape[0],), jnp.int32), pwr
+
+
+def assert_rows_close(got, ref, tol, what=""):
+    """|got - ref| <= tol * (largest |ref| of the same point), point by
+    point (axis 0): a point near the axis or far outside the grid, where
+    values are huge, does not set the bar for the others."""
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    ref = np.asarray(ref)
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    flat = np.abs(ref).reshape(ref.shape[0], -1)
+    scale = np.maximum(flat.max(axis=1), 1e-300).reshape((-1,) + (1,) * (ref.ndim - 1))
+    err = np.abs(got - ref) / scale
+    assert np.all(err <= tol), f"{what}: max scaled error {err.max():.3e} > {tol}"
+
+
+# leaves that come out of a matrix product or a bisection, which the two
+# packages round differently; every other leaf is held to equality
+DERIVED_LEAVES = ("m", "mx", "my", "mxy", "cells", "ne_knots", "te_knots", "ti_knots",
+                  "aphi_lufs", "psin_rho_spline.f")
+
+
+def assert_leaves_close(port_tree, jax_tree, tol, path=""):
+    """Every leaf of the port's Params tree against the JAX tree's, name by
+    name: equal, except the ``DERIVED_LEAVES``, which are held to ``tol``
+    of the leaf's scale (of 1 at least); ``None`` where JAX has ``None``.  Returns the
+    number of leaves compared."""
+    if jax_tree is None or port_tree is None:
+        assert jax_tree is None and port_tree is None, path
+        return 0
+    if isinstance(jax_tree, tuple) and hasattr(jax_tree, "_fields"):
+        assert type(port_tree).__name__ == type(jax_tree).__name__, path
+        assert port_tree._fields == jax_tree._fields, path
+        return sum(assert_leaves_close(getattr(port_tree, name), getattr(jax_tree, name),
+                                       tol, f"{path}.{name}" if path else name)
+                   for name in jax_tree._fields)
+    ref = np.asarray(jax_tree)
+    got = port_tree.numpy()
+    assert got.shape == ref.shape and got.dtype == np.float64, path
+    if any(path == d or path.endswith("." + d) for d in DERIVED_LEAVES):
+        # a table that is zero but for rounding (the second derivatives of
+        # a constant R*Bphi) is held to tol itself
+        np.testing.assert_allclose(got, ref, rtol=0, err_msg=path,
+                                   atol=tol * max(np.abs(ref).max(), 1.0))
+    else:
+        np.testing.assert_array_equal(got, ref, err_msg=path)
+    return 1

@@ -543,10 +543,15 @@ def test_route_of_every_example(name, on_cuda):
     for change in (dict(ode_solver_name="SG_ODE"), dict(integrate_eq_gradients=True),
                    dict(ray_deriv_name="autodiff")):
         assert ttrace.route(dataclasses.replace(cfg, **change), False, "cuda") == "plain"
-    # a config the port does not support raises on every device
+    # the spline geometries have no kernel: plain on every device; a model
+    # the port does not know raises on every device
     for dev in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="A13"):
-            ttrace.route(dataclasses.replace(cfg, equilib_model="axisym_toroid"), False, dev)
+        for model in ("axisym_toroid", "multiple_mirror"):
+            spline = dataclasses.replace(cfg, equilib_model=model)
+            assert ttrace.route(spline, False, dev) == "plain"
+            assert not fused_slab.supported(spline)
+        with pytest.raises(NotImplementedError, match="stellarator"):
+            ttrace.route(dataclasses.replace(cfg, equilib_model="stellarator"), False, dev)
         with pytest.raises(ValueError, match="invalid ode solver"):
             ttrace.route(dataclasses.replace(cfg, ode_solver_name="EULER"), False, dev)
     with pytest.raises(ValueError, match="unsupported device"):

@@ -106,28 +106,74 @@ def test_compensated_sum_rejected():
 
 
 def test_unported_models_raise():
-    """Solovev parses (its model and its ray init); the geometries and ray
-    inits still to come name ROADMAP A13, in the importer and in convert."""
+    """Every equilibrium and ray-init model of the JAX package parses and
+    is carried across by convert: the spline geometries and the three ray
+    inits that used to name ROADMAP A13 are the positive cases now
+    (tests/test_torch_axisym.py, test_torch_mirror.py and
+    test_torch_rayinit.py hold their values).  Only a name neither package
+    knows still raises, and no message names a ROADMAP item."""
+    from rays_tpu.models import multiple_mirror as jmm
+
     cfg, params = tschema.from_namelist(tparse(jex.SOLOVEV_ECH_90GHZ))
     assert cfg.equilib_model == "solovev" and cfg.ode_solver_name == "SG_ODE"
     assert cfg.ray_init_model == "solovev_ray_init_nphi_ntheta"
     assert type(params.eq).__name__ == "SolovevParams"
     assert type(cfg.rayinit_static).__name__ == "SolovevInit"
-    text = jex.SLAB_ECH_90GHZ.replace("ray_init_model='simple_slab'",
-                                      "ray_init_model='file_input_ray_init'")
-    with pytest.raises(NotImplementedError, match="ray_init_model.*A13"):
-        tschema.from_namelist(tparse(text))
-    for model in ("axisym_toroid", "multiple_mirror"):
-        text = jex.SLAB_ECH_90GHZ.replace("equilib_model='slab'",
-                                          f"equilib_model='{model}'")
-        with pytest.raises(NotImplementedError, match="A13"):
-            tschema.from_namelist(tparse(text))
-        jcfg, _ = jschema.from_namelist(jparse(jex.SLAB_ECH_90GHZ))
-        d = dataclasses.asdict(jcfg)
-        with pytest.raises(NotImplementedError, match="A13"):
-            convert.config_from_dict(dict(d, equilib_model=model))
-        with pytest.raises(NotImplementedError, match="A13"):
-            convert.config_from_dict(dict(d, ray_init_model="file_input_ray_init"))
+
+    # the three ray inits, on the slab
+    for name, want, static in (
+            ("file_input_ray_init", "file_input_ray_init", "FileInputInit"),
+            ("one_ray_init_XYZ_k_direction", "one_ray_init_XYZ_k_direction", "OneRayInit"),
+            ("one_ray_init_XYZ_n_direction", "one_ray_init_XYZ_k_direction", "OneRayInit"),
+            ("axisym_toroid_ray_init_R_Z_nphi_ntheta",
+             "axisym_toroid_ray_init_R_Z_nphi_ntheta", "AxisymToroidInit")):
+        text = jex.SLAB_ECH_90GHZ.replace("ray_init_model='simple_slab'",
+                                          f"ray_init_model='{name}'")
+        jcfg, _ = jschema.from_namelist(jparse(text), input_dir="somewhere")
+        pcfg, _ = tschema.from_namelist(tparse(text), input_dir="somewhere")
+        assert pcfg.ray_init_model == jcfg.ray_init_model == want
+        assert type(pcfg.rayinit_static).__name__ == static
+        assert dataclasses.asdict(pcfg.rayinit_static) == dataclasses.asdict(jcfg.rayinit_static)
+        assert convert.config_from_dict(dataclasses.asdict(jcfg)) == pcfg
+
+    # the toroid with the closed-form magnetics needs no file
+    text = jex.SLAB_ECH_90GHZ.replace("equilib_model='slab'", "equilib_model='axisym_toroid'")
+    jcfg, jparams = jschema.from_namelist(jparse(text))
+    pcfg, pparams = tschema.from_namelist(tparse(text))
+    assert pcfg.equilib_model == "axisym_toroid"
+    assert pcfg.eq_static.magnetics_model == "solovev_magnetics"
+    assert type(pparams.eq).__name__ == "AxisymToroidParams"
+    assert type(pparams.eq.mag).__name__ == "SolovevMagParams"
+    assert convert.config_from_dict(dataclasses.asdict(jcfg)) == pcfg
+    jl, pl = _jax_leaves(jparams), _port_leaves(pparams)
+    assert list(jl) == list(pl)
+    for k in jl:
+        np.testing.assert_array_equal(pl[k], jl[k], err_msg=k)
+    got = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    for a, b in zip(tree_leaves(got), tree_leaves(pparams)):
+        assert torch.equal(a, b)
+
+    # the mirror asks for its field file, as the JAX package does
+    text = jex.SLAB_ECH_90GHZ.replace("equilib_model='slab'", "equilib_model='multiple_mirror'")
+    for schema, parse in ((jschema, jparse), (tschema, tparse)):
+        with pytest.raises(ValueError, match="mirror_field_NC_file"):
+            schema.from_namelist(parse(text))
+    d = dataclasses.asdict(jschema.from_namelist(jparse(jex.SLAB_ECH_90GHZ))[0])
+    mirror = convert.config_from_dict(dict(
+        d, equilib_model="multiple_mirror",
+        eq_static=dataclasses.asdict(jmm.MultipleMirrorStatic())))
+    assert type(mirror.eq_static).__name__ == "MultipleMirrorStatic"
+
+    # a name nobody knows
+    for old, new in (("equilib_model='slab'", "equilib_model='stellarator'"),
+                     ("ray_init_model='simple_slab'", "ray_init_model='beam'")):
+        with pytest.raises(NotImplementedError) as exc:
+            tschema.from_namelist(tparse(jex.SLAB_ECH_90GHZ.replace(old, new)))
+        assert "A13" not in str(exc.value) and "ROADMAP" not in str(exc.value)
+    for key in ("equilib_model", "ray_init_model"):
+        with pytest.raises(NotImplementedError) as exc:
+            convert.config_from_dict(dict(d, **{key: "unknown"}))
+        assert "A13" not in str(exc.value)
 
 
 def test_grad_diag_slot_matches_jax():

@@ -133,10 +133,15 @@ def test_deposition_profile_matches_jax(damped_runs, monkeypatch, chunk_elements
 @pytest.mark.parametrize("which,geometry,item", [
     ("Ptotal_psi", "solovev", "A12"), ("Ptotal_psi", "axisym_toroid", "A13"),
     ("Ptotal_rho", "axisym_toroid", "A13"), ("Ptotal_AphiN", "multiple_mirror", "A13")])
-def test_deposition_profile_refusals(damped_runs, solovev_damped_runs, which, geometry, item):
-    """Ptotal_x and the Solovev Ptotal_psi (ROADMAP A12) are ported; the
-    coordinates of the spline geometries name ROADMAP A13, and a
-    coordinate the geometry lacks is an error, as in JAX."""
+def test_deposition_profile_refusals(damped_runs, solovev_damped_runs, which, geometry, item,
+                                     tmp_path):
+    """Every geometry's coordinates are ported: the Solovev Ptotal_psi
+    (ROADMAP A12) is held to JAX on the damped fan, and the coordinates of
+    the spline geometries (ROADMAP A13, which used to be refused here)
+    evaluate on their geometry and equal the geometry's own flux function
+    (tests/test_torch_axisym.py and test_torch_mirror.py hold the binned
+    profiles to JAX).  A coordinate the geometry lacks is an error, as in
+    JAX."""
     (_, _, _), (pcfg, pp, got) = damped_runs
     if geometry == "solovev":
         (scfg, sparams, sref), (spcfg, spp, sgot) = solovev_damped_runs
@@ -148,16 +153,46 @@ def test_deposition_profile_refusals(damped_runs, solovev_damped_runs, which, ge
                                    atol=PROFILE_RTOL * np.abs(jp).max())
         np.testing.assert_allclose(tprof.grid.numpy(), np.asarray(jprof.grid), rtol=1e-15)
     else:
-        with pytest.raises(NotImplementedError, match=item):
-            tdep.calculate_deposition_profile(
-                dataclasses.replace(pcfg, equilib_model=geometry), pp, got, which)
+        gcfg, gparams, coord_ref = _spline_geometry(geometry, which, tmp_path)
+        pts = torch.tensor([[[1.45, 0.0, 0.1], [1.3, 0.2, -0.1]],
+                            [[1.2, -0.3, 0.2], [1.5, 0.1, 0.0]]], dtype=torch.float64)
+        if geometry == "multiple_mirror":
+            pts = torch.tensor([[[0.05, 0.0, 1.0], [0.03, 0.04, 2.5]],
+                                [[0.0, -0.08, 2.0], [0.02, 0.01, 3.4]]], dtype=torch.float64)
+        coord = tdep._coordinate_fn(gcfg, gparams, which)(pts)
+        assert coord.shape == (2, 2) and bool(torch.isfinite(coord).all())
+        assert torch.equal(coord, coord_ref(pts.reshape(-1, 3)).reshape(2, 2))
+        assert float(coord.min()) > 0.0 and float(coord.max()) < 1.2
     with pytest.raises(ValueError, match="not available"):
         tdep.calculate_deposition_profile(pcfg, pp, got, which)
     with pytest.raises(ValueError, match="damping model"):
         tdep.calculate_deposition_profile(dataclasses.replace(pcfg, damping_model="no_damp"),
                                           pp, got, "Ptotal_x")
+    with pytest.raises(ValueError, match="unknown deposition profile"):
+        tdep.calculate_deposition_profile(pcfg, pp, got, "Ptotal_q")
     for geom in ("slab", geometry, "other"):
         assert tdep.profile_names_for_geometry(geom) == jdep.profile_names_for_geometry(geom)
+
+
+def _spline_geometry(geometry, which, tmp_path):
+    """(cfg, params, the geometry's own coordinate function) of a small
+    toroid (a 33 x 33 G-EQDSK with a Q profile) or mirror (a 21 x 81 field
+    file), set up by the port's importer."""
+    from rays_tpu_torch.config import schema as tschema
+    from rays_tpu_torch.models import axisym_toroid as tat
+    from rays_tpu_torch.models import multiple_mirror as tmir
+    from test_axisym import AXISYM_TMPL
+
+    if geometry == "axisym_toroid":
+        path = tp.write_solovev_geqdsk(tmp_path / "q.geqdsk", n=33, with_q=True)
+        from rays_tpu_torch.config.namelist import parse_namelist
+        cfg, params = tschema.from_namelist(parse_namelist(
+            AXISYM_TMPL.format(MAG="eqdsk_magnetics_spline_interp", EQDSK=path)))
+        if which == "Ptotal_rho":
+            return cfg, params, lambda r: tat.rho_and_grad(cfg.eq_static, params.eq, r)[0]
+        return cfg, params, lambda r: tat.psi_and_grad(cfg.eq_static, params.eq, r)[2]
+    cfg, params = tschema.from_file(tp.write_mirror_inputs(tmp_path))
+    return cfg, params, lambda r: tmir.aphi_and_grad(cfg.eq_static, params.eq, r)[2]
 
 
 def _read_nc(path):

@@ -26,6 +26,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "rays_tpu_torch.models.solovev, rays_tpu_torch.rayinit.solovev, "
     "rays_tpu_torch.tracing.rk45, rays_tpu_torch.results.ascii, "
     "rays_tpu_torch.utils.diagnostics",
+    "rays_tpu_torch.models.axisym_toroid, rays_tpu_torch.models.multiple_mirror, "
+    "rays_tpu_torch.ops.splines, rays_tpu_torch.ops.elliptic, "
+    "rays_tpu_torch.utils.eqdsk_io, rays_tpu_torch.utils.solovev_2_eqdsk, "
+    "rays_tpu_torch.utils.mirror_magnetics, rays_tpu_torch.rayinit.axisym_toroid, "
+    "rays_tpu_torch.rayinit.one_ray, rays_tpu_torch.rayinit.file_input",
 ])
 def test_import_pulls_in_no_jax(modules):
     code = (f"import sys, {modules}\n"
