@@ -4,36 +4,51 @@
 Drives the port's paths on the card: builds the slab RK4 CUDA kernel
 libraries from rays_tpu_torch/csrc (undamped and the two damped variants,
 side by side), holds the kernel to its plain PyTorch twin on the card,
-times both, runs the CLI, and runs one training step of the damped slab
-(trace, deposition profile, gradients of every Params leaf through the
-plain tracer, checked against the kernel's forward and a finite
-difference).  Each phase prints one line; the first failure raises and the
-script exits non-zero.
+times both, runs the CLI, runs the training steps, the paths without a
+kernel and post-processing.  Each phase prints one line; the first failure
+raises and the script exits non-zero.
 
-    python3 chip_smoke.py          # from the root of a checkout
+    python3 chip_smoke.py                 # every group, from the root of a checkout
+    python3 chip_smoke.py --group adjoint # one group alone, at its full depth
 
-Phases 1-6: the undamped slab ECH 90 GHz main path (32,768 rays x 500
-steps).  Phase 7: the damped example through the kernel.  Phase 8: the
-damped batch, 32,768 rays x 400 steps, f64 and f32, timed.  Phase 9: the
-training step of __graft_entry__.py on one GPU, at 100 of its 400 steps.  Phases 10-13: the paths
-that have no kernel and run as plain PyTorch on the card, as the JAX
-package runs them as plain XLA operations: the Solovev tokamak fan under
-the adaptive stepper (the example against the same code on the CPU, the
-CLI with its netCDF file, list-directed file and run log, and 32,768 rays
-x 200 outer steps), the slab under the adaptive stepper (32,768 rays x 500
-outer steps, f32 and f64) and the adaptive training step.  Phases 14-16:
-the spline geometries, plain PyTorch on the card as well (the JAX package
-has no kernel for them): the EQDSK tokamak (a 129 x 129 G-EQDSK written by
-the port's solovev_2_eqdsk; launch rays against the CPU, the splined B
-against the closed-form Solovev field, the CLI, 32,768 rays x 500 RK4
-steps at f64 and f32), the multiple mirror (a 51 x 201 field file from the
-port's coil-field generator; the same three parts) and the EQDSK adjoint
-(gradients with respect to the psi cell table and every other leaf, and a
-finite-difference check).  ``--only-spline`` runs phase 1 and phases 14-16
-alone.  The last lines
-are the total wall time, a JSON line of those paths' times, a JSON summary
-of the kernels and {"ok": true, "device": {...}}.  Without a CUDA device
-it exits non-zero and prints no result.
+The phases come in five groups (phase 1, the device, runs in every call):
+
+* kernel, phases 2-8: the build; the undamped slab ECH 90 GHz main path
+  (32,768 rays x 500 steps, f64 and f32, timed against the plain twin and
+  its bound, the card filled at 524,288 rays, the CLI); the damped example
+  through the kernel and the damped batch (32,768 rays x 400 steps).
+* adjoint, phases 9, 13 and 16: the training step of __graft_entry__.py
+  (32,768 damped rays x 400 steps, trajectories on, forward, backward and
+  a finite-difference check through the kernel), the adaptive training
+  step (100 outer steps x 2 masked substeps) and the EQDSK adjoint (100
+  RK4 steps, the psi cell table among the leaves).  The default call,
+  which runs every group, cuts phase 9 to TRAIN_STEPS_DEFAULT and phase 13
+  to SG_ADJOINT_STEPS_DEFAULT and says so in their lines.
+* plain, phases 10-12: the Solovev tokamak fan under the adaptive stepper
+  (the example against the same code on the CPU, the CLI, 32,768 rays x
+  200 outer steps, RK4 at f64 and f32) and the slab under the adaptive
+  stepper (32,768 rays x 500 outer steps, f64 and f32).  No kernel: plain
+  PyTorch on the card, as the JAX package runs them as plain XLA.
+* spline, phases 14-16: the EQDSK tokamak (a 129 x 129 G-EQDSK written by
+  the port's solovev_2_eqdsk) and the multiple mirror (a 51 x 201 field
+  file from the port's coil-field generator): launch rays against the CPU,
+  the CLI, 32,768 rays x 500 RK4 steps at f64 and f32; then the EQDSK
+  adjoint.  ``--only-spline`` is an alias of ``--group spline``.
+* post, phases 17-19: post-processing on the card.  17: the damped batch
+  traced by the kernel with trajectories (32,768 x 401 points), then the
+  ray diagnostics, the resonance and cutoff scan, the kx roots and the
+  deposition profile, each timed with its peak memory, the diagnostics
+  beside their bytes floor, and the first 64 rays held to the CPU.  18:
+  the EQDSK and mirror batches (32,768 rays x SPLINE_EXAMPLE_STEPS with
+  trajectories), their diagnostics, the toroid and mirror processors with
+  the O-X analysis, held to the CPU on 64 rays.  19: the run CLI and then
+  the post-processor CLI on the damped slab, Solovev, EQDSK and mirror
+  examples, every expected file read back.
+
+The last lines are the total wall time, a JSON line of the times of the
+paths without a kernel, a JSON summary of the kernels (when the kernel
+group ran) and {"ok": true, "device": {...}}.  Without a CUDA device it
+exits non-zero and prints no result.
 
 Beside each kernel time stands its bound, the least time the card could
 take for the same work: the larger of the bytes the kernel must move over
@@ -46,6 +61,8 @@ prints the registers, spills and the occupancy the runtime grants; phases
 5 and 8 also time the kernel with the card filled (524,288 rays).
 """
 
+import argparse
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -89,9 +106,18 @@ SPLINE_EXAMPLE_STEPS = 120  # RK4 steps of the launch rays and the CLI (the batc
 SPLINE_BATCH_STEPS = 500    # bench.py's
 EQDSK_ADJOINT_STEPS = 100   # RK4 steps of the EQDSK adjoint (bench.py runs 500)
 EQDSK_FD_STEPS = 20         # RK4 steps of its finite-difference check
-TRAIN_STEPS = 100       # RK4 steps of the damped training step (the example runs 400)
-SG_ADJOINT_STEPS = 50   # outer steps of the adaptive training step (bench.py runs 500)
+TRAIN_STEPS = 400           # RK4 steps of the damped training step (the example's)
+TRAIN_STEPS_DEFAULT = 100   # ... in the default call, which runs every group
+SG_ADJOINT_STEPS = 100      # outer steps of the adaptive training step
+SG_ADJOINT_STEPS_DEFAULT = 50
 SG_FD_STEPS = 20        # outer steps of its finite-difference check
+GROUPS = ("kernel", "adjoint", "plain", "spline", "post")
+# post-processing (phases 17-19): the rays the CPU recomputes, and the
+# tolerances of tests/test_torch_post_*.py for the card against the CPU
+N_HOST_CHECK = 64
+POST_TOL = 1e-12            # of each variable's scale
+N_IMAG_TOL = 1e-10          # n_imag: the Z function and the group velocity
+N_DEP_BINS = 50             # post_process's default
 # NVIDIA's H100 SXM data sheet: memory rate, and FP64 / FP32 rates outside
 # the tensor cores (an FMA is two operations)
 HBM_BYTES_PER_S = 3.35e12
@@ -241,17 +267,101 @@ def flag_counts(res):
     return {flag_string(c).strip(): n for c, n in zip(codes.tolist(), counts.tolist())}
 
 
-def run_cli(path, cwd):
-    """The CLI as a user calls it (python -m, the default device) on the
-    namelist ``path`` with --netcdf; returns its standard output."""
+def run_module(module, args, cwd):
+    """``python -m module args`` as a user calls it, in ``cwd``, with the
+    checkout on the path; returns its standard output."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    cli = subprocess.run([sys.executable, "-m", "rays_tpu_torch.run", path, "--netcdf"],
-                         cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
-    require(cli.returncode == 0, f"the CLI failed on {path}:\n{cli.stdout}\n{cli.stderr}")
-    require("device: cuda" in cli.stdout, f"the CLI did not run on the card:\n{cli.stdout}")
-    return cli.stdout
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0,
+            f"python -m {module} {' '.join(args)} failed:\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout
+
+
+def run_cli(path, cwd):
+    """The run CLI (the default device) on the namelist ``path`` with
+    --netcdf; returns its standard output."""
+    out = run_module("rays_tpu_torch.run", [path, "--netcdf"], cwd)
+    require("device: cuda" in out, f"the CLI did not run on the card:\n{out}")
+    return out
+
+
+def timed_peak(fn):
+    """(ms by CUDA events, result, peak bytes allocated during the call,
+    what was allocated before it included)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, out = timed(fn)
+    return ms, out, torch.cuda.max_memory_allocated()
+
+
+def first_rays(res, n):
+    """The first n rays of a RayResults."""
+    return type(res)(*(t[:n] for t in res))
+
+
+def require_same_diagnostics(card, host, what):
+    """The diagnostics of the card's first rays against the CPU's, each
+    variable within POST_TOL (n_imag N_IMAG_TOL) of the CPU's scale.
+    Returns the largest scaled error."""
+    require(list(card) == list(host), f"{what}: variables {list(card)} != {list(host)}")
+    worst = 0.0
+    for name, h in host.items():
+        c = card[name][:h.shape[0]].cpu()
+        err = float((c - h).abs().max()) / max(float(h.abs().max()), 1e-300)
+        require(err <= (N_IMAG_TOL if name == "n_imag" else POST_TOL),
+                f"{what}: {name} card vs CPU {err:.3e} of scale")
+        worst = max(worst, err)
+    return worst
+
+
+def _read_outputs(path):
+    """{name: array} of a netCDF file, or the numbers of a text file."""
+    from scipy.io import netcdf_file
+
+    if path.endswith(".nc"):
+        f = netcdf_file(path, "r", mmap=False)
+        try:
+            return {k: np.array(v.data) for k, v in f.variables.items() if k != "date_vector"}
+        finally:
+            f.close()
+    with open(path) as f:
+        words = f.read().split()
+    nums = []
+    for w in words:
+        try:
+            nums.append(float(w))
+        except ValueError:
+            pass
+    return {"numbers": np.array(nums), "words": len(words)}
+
+
+def require_same_files(card_dir, host_dir, skip=()):
+    """Every file the card wrote against the CPU's, variable by variable:
+    floats within POST_TOL of each variable's scale (the numbers of a text
+    file within 1e-8 of their size), everything else equal.  Returns the
+    names compared."""
+    names = sorted(n for n in os.listdir(card_dir) if not n.startswith(skip))
+    require(names == sorted(n for n in os.listdir(host_dir) if not n.startswith(skip)),
+            f"card wrote {names}, the CPU {sorted(os.listdir(host_dir))}")
+    for name in names:
+        c = _read_outputs(os.path.join(card_dir, name))
+        h = _read_outputs(os.path.join(host_dir, name))
+        require(list(c) == list(h), f"{name}: variables differ")
+        for k in h:
+            a, b = np.asarray(c[k]), np.asarray(h[k])
+            require(a.shape == b.shape, f"{name}:{k} shape {a.shape} != {b.shape}")
+            if b.dtype.kind != "f" or not b.size:
+                require(np.array_equal(a, b), f"{name}:{k} differs")
+            elif k == "numbers":
+                require(np.all(np.abs(a - b) <= 1e-8 * np.maximum(np.abs(a), np.abs(b))),
+                        f"{name}: numbers differ")
+            else:
+                err = float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-300)
+                require(err <= POST_TOL, f"{name}:{k} card vs CPU {err:.3e} of scale")
+    return names
 
 
 def spline_geometry_phase(phase, name, write_example, card, dev, paths, extra_check):
@@ -272,16 +382,7 @@ def spline_geometry_phase(phase, name, write_example, card, dev, paths, extra_ch
     f64, f32 = torch.float64, torch.float32
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        path = write_example(tmp)
-        t_files = time.perf_counter() - t0
-        with open(path) as f:
-            text = f.read()
-        require(f"nstep_max={SPLINE_BATCH_STEPS}" in text, f"the {name} example changed")
-        with open(path, "w") as f:
-            f.write(text.replace(f"nstep_max={SPLINE_BATCH_STEPS}",
-                                 f"nstep_max={SPLINE_EXAMPLE_STEPS}"))
-        t0 = time.perf_counter()
-        cfg, params, v0, st0, pwr = runner.setup(path, device=dev, dtype=f64)
+        path, (cfg, params, v0, st0, pwr) = spline_example(write_example, tmp, dev)
         t_setup = time.perf_counter() - t0
         host_case = runner.setup(path, device="cpu", dtype=f64)
         # (b) the CLI, in the directory of its input files
@@ -304,9 +405,8 @@ def spline_geometry_phase(phase, name, write_example, card, dev, paths, extra_ch
     require(err <= HOST_RTOL, f"{name} card vs CPU {err:.3e} > {HOST_RTOL}")
     require(min(npts) > 5 and res_max < SPLINE_RESID_MAX,
             f"{name} npoints {npts} max residual {res_max:.3e}")
-    print(f"phase {phase} {name} example f64, RK4 x {cfg.nstep_max} steps, route plain: files "
-          f"{t_files:.2f} s, setup "
-          f"{t_setup:.2f} s; {len(npts)} rays, npoints {npts} flags {flags} max residual "
+    print(f"phase {phase} {name} example f64, RK4 x {cfg.nstep_max} steps, route plain: files and "
+          f"setup {t_setup:.2f} s; {len(npts)} rays, npoints {npts} flags {flags} max residual "
           f"{res_max:.3e}; card vs CPU trajectory err {err:.3e} of scale (bound {HOST_RTOL}); "
           f"{ex_ms:.1f} ms; {extra_check(cfg, params)}")
     require(nc["npoints"].tolist() == npts, f"{name} CLI npoints {nc['npoints']} != {npts}")
@@ -360,14 +460,13 @@ def spline_geometry_phase(phase, name, write_example, card, dev, paths, extra_ch
     return cfg, params, v0, st0, pwr
 
 
-def spline_phases(card, dev, paths):
+def spline_phases(run):
     """Phases 14-16: the spline geometries, plain PyTorch on the card."""
     from rays_tpu_torch import examples
-    from rays_tpu_torch.core.types import tree_leaves, tree_map
     from rays_tpu_torch.models import base, solovev
     from rays_tpu_torch.tracing import fused_slab
-    from rays_tpu_torch.tracing.trace import route, trace_rays
 
+    card, dev, paths = run.card, run.dev, run.paths
     f64 = torch.float64
     launches_before = fused_slab.LAUNCHES
 
@@ -405,9 +504,38 @@ def spline_phases(card, dev, paths):
     # phase 15: the multiple mirror
     spline_geometry_phase(15, "mirror", examples.write_mirror_example, card, dev, paths,
                           mirror_field_check)
+    eqdsk_adjoint_phase(run, (cfg_e, params_e, v0_e, st0_e, pwr_e))
+    require(fused_slab.LAUNCHES == launches_before,
+            "phases 14-16 launched the slab kernel")
+    print("phases 14-16: route plain throughout, no kernel launch counted")
 
-    # phase 16: the EQDSK adjoint (the loss of bench.py's EQDSK row):
-    # gradients with respect to the psi cell table and every other leaf
+
+def spline_example(write_example, directory, dev):
+    """A spline example written into ``directory`` by the port's tools, its
+    launch rays and the CLI cut to SPLINE_EXAMPLE_STEPS: (path of rays.in,
+    (cfg, params, v0, status0, pwr) on ``dev``)."""
+    from rays_tpu_torch import run as runner
+
+    path = spline_example_files(write_example, directory)
+    return path, runner.setup(path, device=dev, dtype=torch.float64)
+
+
+def eqdsk_adjoint_phase(run, case=None):
+    """Phase 16: the EQDSK adjoint (the loss of bench.py's EQDSK row):
+    gradients with respect to the psi cell table and every other leaf, and
+    the directional derivative.  ``case`` is the EQDSK example on the card
+    (phase 14's, or made here)."""
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.core.types import tree_leaves, tree_map
+    from rays_tpu_torch.tracing.trace import route, trace_rays
+
+    card, dev, paths = run.card, run.dev, run.paths
+    f64 = torch.float64
+    if case is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            case = spline_example(examples.write_eqdsk_toroid_example, tmp, dev)[1]
+    cfg_e, params_e, v0_e, st0_e, pwr_e = case
+
     def loss_of(res):
         return (res.end_ray_vec[:, 0:3] ** 2 * res.initial_ray_power[:, None]).sum()
 
@@ -478,42 +606,43 @@ def spline_phases(card, dev, paths):
     print(f"phase 16 EQDSK gradient check, {v0_e.shape[0]} rays x {EQDSK_FD_STEPS} steps: loss "
           f"{float(loss_f):.12e}, directional derivative {dd:.10e} vs central difference "
           f"{fd:.10e} (eps {FD_EPS} of each leaf), rel diff {fd_rel:.3e} (bound {FD_RTOL})")
-    require(fused_slab.LAUNCHES == launches_before,
-            "phases 14-16 launched the slab kernel")
-    print("phases 14-16: route plain throughout, no kernel launch counted")
 
 
-def main():
-    t_start = time.perf_counter()
-    # phase 1: the device
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "runs only on a CUDA device", file=sys.stderr)
-        return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    card = smi.splitlines()[0].strip()
-    print(card)
-    kind = torch.cuda.get_device_name(0)
-    print(f"phase 1 device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"count {torch.cuda.device_count()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    if "--only-spline" in sys.argv[1:]:
-        paths = []
-        spline_phases(card, torch.device("cuda", 0), paths)
-        print(f"total wall time {time.perf_counter() - t_start:.1f} s")
-        print(json.dumps({"paths": paths}))
-        return 0
+def substep_report(totals, n_rays, n_outer):
+    loops, reads, attempts, rejected = totals
+    return (f"substeps per outer step {loops / n_outer:.3f} lockstep passes, "
+            f"{attempts / n_rays / n_outer:.3f} taken and "
+            f"{rejected / n_rays / n_outer:.4f} rejected per ray; host reads per "
+            f"outer step {reads / n_outer:.3f}")
 
+
+def slab_sg_case(dev):
+    """The slab example under SG_ODE (bench.py's bench_sg_adaptive) on the
+    card: the example (cfg, params, v0, status0, pwr) and, summaries only,
+    (cfg, v, status, pwr) of its 32,768-ray batch."""
+    from rays_tpu_torch import examples
+
+    case = examples.setup_example(
+        examples.SLAB_ECH_90GHZ.replace("ode_solver_name='RK4_ODE'", "ode_solver_name='SG_ODE'"),
+        device=dev, dtype=torch.float64)
+    cfg_g = case[0]
+    require(cfg_g.ode_solver_name == "SG_ODE" and cfg_g.nstep_max == 500, "slab SG case")
+    return case, (dataclasses.replace(cfg_g, save_trajectory=False),
+                  *examples.replicate_rays(*case[2:], N_RAYS))
+
+
+def kernel_phases(run):
+    """Phases 2-8: the kernels, built from the sources in the checkout,
+    on the undamped and the damped main paths.  Returns what the kernels
+    line reports."""
     from rays_tpu_torch import examples, run as runner
-    from rays_tpu_torch.core.types import tree_leaves, tree_map, tree_to
-    from rays_tpu_torch.post.deposition import calculate_deposition_profile
+    from rays_tpu_torch.core.types import tree_to
     from rays_tpu_torch.results.netcdf import read_results_nc
     from rays_tpu_torch.tracing import fused_slab
     from rays_tpu_torch.tracing.stop import StopCode, flag_string
     from rays_tpu_torch.tracing.trace import trace_rays
+
+    card = run.card
 
     # phase 2: build the kernel libraries from the sources in the checkout
     t0 = time.perf_counter()
@@ -734,11 +863,30 @@ def main():
               f"kernel {t_fill:.3f} ms ({N_FILL / t_fill * 1e3:.0f} rays/s)")
         report_bound("phase 8 damped", name, ops_d, N_FILL, cfg_d.nv, dt, t_fill)
     del vf, stf, wf
+    return {"slab_rk4": (main_launches, abs64, times[f64], bounds[f64]),
+            "slab_rk4_damped": (damped_launches, db_max_abs, damped_times[f64],
+                                damped_bounds[f64]),
+            "big64_end": big64.end_ray_vec}
 
-    # phase 9: the training step of __graft_entry__.py on one GPU, at
-    # TRAIN_STEPS of the example's 400 steps (the rays are absorbed at
-    # 293-329 points, so the cut run ends on the step budget)
-    cfg_t = dataclasses.replace(cfg_d, nstep_max=TRAIN_STEPS)
+
+def training_phase(run, steps):
+    """Phase 9: the training step of __graft_entry__.py on one GPU at
+    ``steps`` of its TRAIN_STEPS steps, and its directional derivative."""
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.core.types import tree_leaves, tree_map
+    from rays_tpu_torch.post.deposition import calculate_deposition_profile
+    from rays_tpu_torch.tracing import fused_slab
+    from rays_tpu_torch.tracing.stop import StopCode
+    from rays_tpu_torch.tracing.trace import trace_rays
+
+    dev, f64 = run.dev, torch.float64
+    cfg_d, params_d, v0_d, st0_d, pwr_d = examples.setup_example(
+        examples.SLAB_ECH_DAMPED, device=dev, dtype=f64)
+    vd, std, wd = examples.replicate_rays(v0_d, st0_d, pwr_d, N_RAYS)
+    # the rays are absorbed at 293-329 points: a run cut below that ends on
+    # the step budget, and no ray reaches TOTAL_ABSORPTION
+    require(cfg_d.nstep_max == TRAIN_STEPS, "the damped example changed")
+    cfg_t = dataclasses.replace(cfg_d, nstep_max=steps)
     xmin, xmax = float(params_d.eq.xmin), float(params_d.eq.xmax)
 
     def loss_of(res, p):
@@ -751,21 +899,22 @@ def main():
         return tree_map(lambda t: t.detach().clone().requires_grad_(True), p)
 
     def train_step(v, st, w):
-        """(loss, grads, forward ms, backward ms, peak bytes) through the
-        adjoint route of trace_rays."""
+        """(loss, grads, forward ms, backward ms, peak bytes, stop flags)
+        through the adjoint route of trace_rays."""
         pg = with_grad(params_d)
         leaves = tree_leaves(pg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        loss = loss_of(trace_rays(cfg_t, pg, v, st, w), pg)
+        res = trace_rays(cfg_t, pg, v, st, w)
+        loss = loss_of(res, pg)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         return (loss.detach(), grads, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
-                torch.cuda.max_memory_allocated())
+                torch.cuda.max_memory_allocated(), res.stop_flag)
 
     def kernel_loss(p, v, st, w):
         before = fused_slab.LAUNCHES
@@ -775,24 +924,30 @@ def main():
         require(fused_slab.LAUNCHES > before, "the kernel forward did not launch the kernel")
         return out, res
 
-    vd9, std9, wd9 = vd, std, wd     # the phase-8 batch, trajectories on
-    loss9, grads9, fwd_ms, bwd_ms, peak = train_step(vd9, std9, wd9)
+    loss9, grads9, fwd_ms, bwd_ms, peak, flags9 = train_step(vd, std, wd)
     n_leaves = len(grads9)
     bad = [i for i, g in enumerate(grads9) if not bool(torch.isfinite(g).all())]
     require(not bad, f"non-finite gradients in leaves {bad}")
-    lossk, _ = kernel_loss(params_d, vd9, std9, wd9)
+    absorbed = int((flags9 == StopCode.TOTAL_ABSORPTION).sum())
+    require(absorbed > 0 or steps < TRAIN_STEPS, "no ray reached TOTAL_ABSORPTION")
+    lossk, _ = kernel_loss(params_d, vd, std, wd)
     loss_rel = abs(float(lossk) - float(loss9)) / abs(float(loss9))
     require(loss_rel <= LOSS_RTOL,
             f"kernel-forward loss {float(lossk)!r} vs autograd {float(loss9)!r}: {loss_rel:.3e}")
-    print(f"phase 9 training step {N_RAYS} rays x {cfg_t.nstep_max} steps f64 "
-          f"(of the example's {cfg_d.nstep_max}; trajectories on, {N_BINS} bins): loss {float(loss9):.12e}, forward "
-          f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, peak memory {peak / 2**30:.2f} GiB; "
-          f"{n_leaves} leaf gradients all finite; kernel-forward loss rel diff "
-          f"{loss_rel:.3e} (bound {LOSS_RTOL})")
+    depth = ("its full depth" if steps == TRAIN_STEPS else
+             f"cut from {TRAIN_STEPS} to fit the default run; --group adjoint runs all")
+    print(f"phase 9 training step {N_RAYS} rays x {steps} steps f64 ({depth}; trajectories "
+          f"on, {N_BINS} bins): loss {float(loss9):.12e}, forward {fwd_ms:.1f} ms, backward "
+          f"{bwd_ms:.1f} ms, peak memory {peak / 2**30:.2f} GiB; {absorbed} rays end with "
+          f"TOTAL_ABSORPTION; {n_leaves} leaf gradients all finite; kernel-forward loss rel "
+          f"diff {loss_rel:.3e} (bound {LOSS_RTOL}) on {run.card}")
+    run.paths.append({"name": "training_step_f64", "ms": fwd_ms + bwd_ms, "forward_ms": fwd_ms,
+                      "backward_ms": bwd_ms, "steps": steps, "peak_gib": peak / 2**30})
+    del grads9
 
     # the directional derivative on the 3 example rays against a central
     # difference through the kernel; ode and limits are held fixed
-    loss3, grads3, _, _, _ = train_step(v0_d, st0_d, pwr_d)
+    loss3, grads3, _, _, _, _ = train_step(v0_d, st0_d, pwr_d)
     rng = np.random.default_rng(2)
 
     def direction(sub, physics):
@@ -819,18 +974,22 @@ def main():
           f"difference {fd:.10e} (eps {FD_EPS} of each leaf), rel diff {fd_rel:.3e} "
           f"(bound {FD_RTOL}); npoints at +-eps {rp.npoints.tolist()}")
 
-    # ---- phases 10-13: the paths without a kernel, plain PyTorch on the card ----
+
+def plain_phases(run, big64_end=None):
+    """Phases 10-12: the Solovev example, its CLI, the Solovev fan and the
+    slab under the adaptive stepper, plain PyTorch on the card.
+    ``big64_end`` is the RK4 kernel's f64 batch of phase 4, when it ran."""
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.core.types import tree_to
+    from rays_tpu_torch.results.netcdf import read_results_nc
+    from rays_tpu_torch.tracing import fused_slab
+    from rays_tpu_torch.tracing.stop import flag_string
+    from rays_tpu_torch.tracing.trace import trace_rays
+
     from rays_tpu_torch.results.ascii import read_results_ld
-    from rays_tpu_torch.tracing.trace import route
 
-    paths = []
-
-    def substep_report(totals, n_rays, n_outer):
-        loops, reads, attempts, rejected = totals
-        return (f"substeps per outer step {loops / n_outer:.3f} lockstep passes, "
-                f"{attempts / n_rays / n_outer:.3f} taken and "
-                f"{rejected / n_rays / n_outer:.4f} rejected per ray; host reads per "
-                f"outer step {reads / n_outer:.3f}")
+    card, dev, paths = run.card, run.dev, run.paths
+    f64, f32 = torch.float64, torch.float32
 
     # phase 10: the Solovev example, 5 rays x 200 outer steps, SG_ODE, f64
     cfg_s, params_s, v0_s, st0_s, pwr_s = examples.setup_example(
@@ -921,13 +1080,8 @@ def main():
 
     # phase 12 (b): the slab under SG_ODE, 32,768 rays x 500 outer steps
     # (bench.py's bench_sg_adaptive), f64 and f32
-    cfg_g, params_g, v0_g, st0_g, pwr_g = examples.setup_example(
-        examples.SLAB_ECH_90GHZ.replace("ode_solver_name='RK4_ODE'", "ode_solver_name='SG_ODE'"),
-        device=dev, dtype=f64)
-    require(cfg_g.ode_solver_name == "SG_ODE" and cfg_g.nstep_max == 500, "slab SG case")
+    (cfg_g, params_g, v0_g, st0_g, pwr_g), (cfg_gb, vg, stg, wg) = slab_sg_case(dev)
     ex_g, _, _, _ = plain_run(cfg_g, params_g, v0_g, st0_g, pwr_g)
-    cfg_gb = dataclasses.replace(cfg_g, save_trajectory=False)
-    vg, stg, wg = examples.replicate_rays(v0_g, st0_g, pwr_g, N_RAYS)
     params_g32 = tree_to(params_g, dtype=f32)
     slab_sg = {}
     for dt, p_, v_, w_ in ((f64, params_g, vg, wg), (f32, params_g32, vg.to(f32), wg.to(f32))):
@@ -947,15 +1101,27 @@ def main():
     ex, ek = group_err(slab_sg[f32].end_ray_vec, slab_sg[f64].end_ray_vec)
     require(ex <= SG_F32_RTOL_SLAB[0] and ek <= SG_F32_RTOL_SLAB[1],
             f"slab SG f32 vs f64: positions {ex:.3e}, k {ek:.3e}")
-    sg_k = group_err(slab_sg[f64].end_ray_vec, big64.end_ray_vec)
+    vs_rk4 = "not run (no kernel group in this call)"
+    if big64_end is not None:
+        sg_k = group_err(slab_sg[f64].end_ray_vec, big64_end)
+        vs_rk4 = f"{sg_k[0]:.3e}, {sg_k[1]:.3e} (tolerance 1e-4 requested)"
     print(f"phase 12 slab SG f32 vs f64 endpoints {ex:.3e} (positions), {ek:.3e} (k) of scale "
-          f"(bounds {SG_F32_RTOL_SLAB}); SG f64 vs the RK4 kernel's f64 {sg_k[0]:.3e}, "
-          f"{sg_k[1]:.3e} (tolerance 1e-4 requested)")
+          f"(bounds {SG_F32_RTOL_SLAB}); SG f64 vs the RK4 kernel's f64 {vs_rk4}")
     del slab_sg
 
-    # phase 13: the adaptive training step (bench.py's SG adjoint): the
-    # fixed budget of 2 masked substeps, forward and backward, f64
-    cfg_a = dataclasses.replace(cfg_gb, sg_scan_substeps=2, nstep_max=SG_ADJOINT_STEPS)
+
+def sg_training_phase(run, steps):
+    """Phase 13: the adaptive training step (bench.py's SG adjoint) at
+    ``steps`` of its SG_ADJOINT_STEPS outer steps, and its directional
+    derivative."""
+    from rays_tpu_torch.core.types import tree_leaves, tree_map
+    from rays_tpu_torch.tracing.trace import route, trace_rays
+
+    card, dev, paths = run.card, run.dev, run.paths
+    f64 = torch.float64
+    (cfg_g, params_g, v0_g, st0_g, pwr_g), (cfg_gb, vg, stg, wg) = slab_sg_case(dev)
+    # the fixed budget of 2 masked substeps, forward and backward, f64
+    cfg_a = dataclasses.replace(cfg_gb, sg_scan_substeps=2, nstep_max=steps)
 
     def sg_loss(res):
         return (res.end_ray_vec[:, 0:3] ** 2 * res.initial_ray_power[:, None]).sum()
@@ -978,16 +1144,18 @@ def main():
                 torch.cuda.max_memory_allocated())
 
     loss_a, res_a, grads_a, fwd_a, bwd_a, peak_a = sg_train_step(cfg_a, vg, stg, wg)
-    require(int(res_a.npoints.min()) == SG_ADJOINT_STEPS + 1 == int(res_a.npoints.max()),
+    require(int(res_a.npoints.min()) == steps + 1 == int(res_a.npoints.max()),
             "the budget of 2 substeps did not suffice")
     bad = [i for i, g in enumerate(grads_a) if not bool(torch.isfinite(g).all())]
     require(not bad, f"non-finite SG gradients in leaves {bad}")
-    print(f"phase 13 SG training step {N_RAYS} rays x {SG_ADJOINT_STEPS} outer steps f64 "
-          f"(sg_scan_substeps 2, summaries only): loss {float(loss_a):.12e}, forward "
+    depth = ("its full depth" if steps == SG_ADJOINT_STEPS else
+             f"cut from {SG_ADJOINT_STEPS} to fit the default run; --group adjoint runs all")
+    print(f"phase 13 SG training step {N_RAYS} rays x {steps} outer steps f64 ({depth}; "
+          f"sg_scan_substeps 2, summaries only): loss {float(loss_a):.12e}, forward "
           f"{fwd_a:.1f} ms, backward {bwd_a:.1f} ms, peak memory {peak_a / 2**30:.2f} GiB; "
           f"{len(grads_a)} leaf gradients all finite on {card}")
     paths.append({"name": "slab_sg_training_step_f64", "ms": fwd_a + bwd_a, "forward_ms": fwd_a,
-                  "backward_ms": bwd_a, "outer_steps": SG_ADJOINT_STEPS,
+                  "backward_ms": bwd_a, "outer_steps": steps,
                   "rays_per_s": N_RAYS / (fwd_a + bwd_a) * 1e3})
     del res_a, grads_a
 
@@ -1016,18 +1184,329 @@ def main():
           f"{float(loss_f):.12e}, directional derivative {dd_sg:.10e} vs central difference "
           f"{fd_sg:.10e} (eps {FD_EPS} of each leaf), rel diff {fd_sg_rel:.3e} (bound {FD_RTOL})")
 
-    # ---- phases 14-16: the spline geometries, plain PyTorch on the card ----
-    spline_phases(card, dev, paths)
 
-    total_s = time.perf_counter() - t_start
-    print(f"total wall time {total_s:.1f} s")
-    print(json.dumps({"paths": paths}))
-    kernels = []
-    for name, launches, err, (t_kern, t_plain), (bound, bound_by) in (
-            ("slab_rk4", main_launches, abs64, times[f64], bounds[f64]),
-            ("slab_rk4_damped", damped_launches, db_max_abs, damped_times[f64],
-             damped_bounds[f64])):
-        kernels.append({
+def post_main_path_phase(run):
+    """Phase 17: the main path's post-processing at full width.  Kernel B1
+    (damped, f64) traces the damped example's 32,768 rays x 400 steps with
+    trajectories; then, on the card, the ray diagnostics of every (ray,
+    step) point, the resonance and cutoff scan of every ray, the kx roots
+    of every ray and every deposition profile, each timed with its peak
+    memory, and the first N_HOST_CHECK rays recomputed on the CPU."""
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.core.types import tree_to
+    from rays_tpu_torch.post import deposition, ray_diags, slab_processor
+    from rays_tpu_torch.tracing import fused_slab
+    from rays_tpu_torch.tracing.stop import StopCode
+    from rays_tpu_torch.tracing.trace import trace_rays
+
+    card, dev, paths, f64 = run.card, run.dev, run.paths, torch.float64
+    cfg, params, v0, st0, pwr = examples.setup_example(
+        examples.SLAB_ECH_DAMPED, device=dev, dtype=f64)
+    require(cfg.save_trajectory and fused_slab.supported(cfg),
+            "the damped example must ride the kernel with trajectories on")
+    vb, stb, wb = examples.replicate_rays(v0, st0, pwr, N_RAYS)
+    xmin, xmax = float(params.eq.xmin), float(params.eq.xmax)
+    names = deposition.profile_names_for_geometry(cfg.equilib_model, cfg, params)
+    require(names == ("Ptotal_x",), f"slab profiles {names}")
+
+    def steps(res):
+        rindex = res.start_ray_vec[:, 3:6] / params.rf.k0
+        return {
+            "ray_diagnostics": lambda: ray_diags.compute_ray_diagnostics(cfg, params, res),
+            "res_and_cuts": lambda: slab_processor.find_res_and_cuts(cfg, params, rindex,
+                                                                     write_file=False),
+            "kx_roots": lambda: slab_processor.kx_profiles(cfg, params, rindex)[1],
+            "Ptotal_x": lambda: deposition.calculate_deposition_profile(
+                cfg, params, res, "Ptotal_x", n_bins=N_DEP_BINS, xmin=xmin, xmax=xmax).profile,
+        }
+
+    trace_rays(dataclasses.replace(cfg, nstep_max=3), params, vb, stb, wb)   # build, warm-up
+    # the main path, counted: the kernel's trace, then post-processing
+    fused_slab.LAUNCHES = 0
+    t_trace, res = timed(lambda: trace_rays(cfg, params, vb, stb, wb))
+    launches = fused_slab.LAUNCHES
+    require(launches >= 1, "phase 17's trace did not launch the damped kernel")
+    for fn in steps(first_rays(res, N_HOST_CHECK)).values():    # warm-up of each step
+        fn()
+    out, line = {}, []
+    for name, fn in steps(res).items():
+        ms, out[name], peak = timed_peak(fn)
+        line.append(f"{name} {ms:.1f} ms (peak {peak / 2**30:.2f} GiB)")
+        paths.append({"name": f"post_slab_{name}", "ms": ms, "peak_gib": peak / 2**30})
+    require(fused_slab.LAUNCHES == launches, "post-processing launched the kernel")
+    B, n_pts, nv = res.ray_vec.shape
+    absorbed = int((res.stop_flag == StopCode.TOTAL_ABSORPTION).sum())
+    diags = out["ray_diagnostics"]
+    # the bytes the diagnostics must move: the trajectories, residuals and
+    # npoints read once, every variable written once
+    n_read = (res.ray_vec.numel() + res.residual.numel()) * 8 + res.npoints.numel() * 4
+    n_written = sum(v.numel() * v.element_size() for v in diags.values())
+    floor = (n_read + n_written) / HBM_BYTES_PER_S * 1e3
+    paths[-4]["bound_ms"] = floor
+    print(f"phase 17 damped B1 f64 {B} rays x {n_pts} points (trajectories on): trace "
+          f"{t_trace:.1f} ms, {launches} launch; {absorbed} rays end with TOTAL_ABSORPTION; "
+          f"post-processing on the card: " + ", ".join(line) + f"; diagnostics: "
+          f"{len(diags)} variables, {n_read / 1e9:.3f} GB read + {n_written / 1e9:.3f} GB "
+          f"written = bytes floor {floor:.3f} ms, {floor / paths[-4]['ms']:.4f} of it on {card}")
+    require(absorbed > 0, "no ray of phase 17 was absorbed")
+    require(all(bool(torch.isfinite(v).all()) for v in diags.values()), "non-finite diagnostics")
+
+    # the first rays again on the CPU
+    n = N_HOST_CHECK
+    host_params = tree_to(params, "cpu")
+    host_res = tree_to(first_rays(res, n), "cpu")
+    host_rindex = host_res.start_ray_vec[:, 3:6] / host_params.rf.k0
+    diag_err = require_same_diagnostics(
+        diags, ray_diags.compute_ray_diagnostics(cfg, host_params, host_res), "phase 17")
+    host_cuts = slab_processor.find_res_and_cuts(cfg, host_params, host_rindex, write_file=False)
+    width = xmax - xmin
+    for i, (c, h) in enumerate(zip(out["res_and_cuts"][:n], host_cuts)):
+        require([len(v) for v in c.values()] == [len(v) for v in h.values()],
+                f"ray {i}: crossing counts card {[len(v) for v in c.values()]} != CPU")
+        for k in h:
+            require(np.all(np.abs(c[k] - h[k]) <= POST_TOL * width), f"ray {i} {k} crossings")
+    n_cross = sum(len(v) for e in out["res_and_cuts"] for v in e.values())
+    host_kx = slab_processor.kx_profiles(cfg, host_params, host_rindex)[1]
+    kx_err = float((out["kx_roots"][:n].cpu() - host_kx).abs().max() / host_kx.abs().max())
+    require(kx_err <= POST_TOL, f"kx roots card vs CPU {kx_err:.3e}")
+    dep_card = steps(first_rays(res, n))["Ptotal_x"]().cpu()
+    dep_host = deposition.calculate_deposition_profile(
+        cfg, host_params, host_res, "Ptotal_x", n_bins=N_DEP_BINS, xmin=xmin, xmax=xmax).profile
+    dep_err = float((dep_card - dep_host).abs().max() / dep_host.abs().max())
+    require(dep_err <= POST_TOL, f"deposition card vs CPU {dep_err:.3e}")
+    print(f"phase 17 card vs CPU on the first {n} rays: diagnostics {diag_err:.3e} of scale "
+          f"(bounds {POST_TOL}, n_imag {N_IMAG_TOL}); crossings equal in count, locations "
+          f"within {POST_TOL} of the box ({n_cross} crossings over all rays); kx roots "
+          f"{kx_err:.3e}; Ptotal_x {dep_err:.3e} (total absorbed "
+          f"{float(out['Ptotal_x'].sum()):.6f} of 1)")
+
+
+def post_spline_phase(run):
+    """Phase 18: the EQDSK and mirror batches with trajectories, their ray
+    diagnostics and the toroid and mirror processors (the latter with the
+    O-X analysis) on the card, timed, and the first N_HOST_CHECK rays and
+    the geometry files held to the CPU."""
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.core.types import tree_to
+    from rays_tpu_torch.post import mirror_processor, ox_conversion, ray_diags
+    from rays_tpu_torch.post import toroid_processor
+
+    card, dev, paths = run.card, run.dev, run.paths
+    cwd = os.getcwd()
+    for name, write, processor in (
+            ("EQDSK", examples.write_eqdsk_toroid_example, toroid_processor),
+            ("mirror", examples.write_mirror_example, mirror_processor)):
+        with tempfile.TemporaryDirectory() as tmp:
+            _, (cfg, params, v0, st0, pwr) = spline_example(write, tmp, dev)
+            vb, stb, wb = examples.replicate_rays(v0, st0, pwr, N_RAYS)
+            res, t_trace, _, _ = plain_run(cfg, params, vb, stb, wb)
+            ray_diags.compute_ray_diagnostics(cfg, params, first_rays(res, N_HOST_CHECK))
+            t_diag, diags, peak_diag = timed_peak(
+                lambda: ray_diags.compute_ray_diagnostics(cfg, params, res))
+            dirs = {k: os.path.join(tmp, k) for k in ("card", "cpu")}
+            for d in dirs.values():
+                os.mkdir(d)
+            os.chdir(dirs["card"])
+            try:
+                t_proc, proc_out, peak_proc = timed_peak(
+                    lambda: processor.process(cfg, params, res))
+                host_params = tree_to(params, "cpu")
+                host_res = tree_to(first_rays(res, N_HOST_CHECK), "cpu")
+                os.chdir(dirs["cpu"])
+                processor.process(cfg, host_params, host_res)
+            finally:
+                os.chdir(cwd)
+            diag_err = require_same_diagnostics(
+                diags, ray_diags.compute_ray_diagnostics(cfg, host_params, host_res),
+                f"phase 18 {name}")
+            files = require_same_files(dirs["card"], dirs["cpu"], skip=("OX_conversion",))
+            ox = ""
+            if processor is mirror_processor:
+                card_ox = ox_conversion.ox_conv_analysis(cfg, params,
+                                                         first_rays(res, N_HOST_CHECK))
+                host_ox = ox_conversion.ox_conv_analysis(cfg, host_params, host_res)
+                require([(c.ray_number, c.step_number) for c in card_ox]
+                        == [(c.ray_number, c.step_number) for c in host_ox],
+                        "O-X records card != CPU")
+                for c, h in zip(card_ox, host_ox):
+                    require(abs(c.conv_coeff - h.conv_coeff) <= N_IMAG_TOL * abs(h.conv_coeff)
+                            and np.allclose(c.x_cut, h.x_cut, rtol=0, atol=POST_TOL),
+                            "O-X coefficient or cutoff point card != CPU")
+                n_cand = int(ox_conversion.candidates(cfg, params, res)[0].numel())
+                ox = (f"; O-X: {n_cand} rays with an interior maximum of alpha below the "
+                      f"cutoff, {proc_out['n_converted']} of {N_RAYS} convert, "
+                      f"{len(host_ox)} of the first {N_HOST_CHECK} on both")
+        tag = name.lower()
+        paths.append({"name": f"post_{tag}_ray_diagnostics", "ms": t_diag,
+                      "peak_gib": peak_diag / 2**30})
+        paths.append({"name": f"post_{tag}_process", "ms": t_proc, "peak_gib": peak_proc / 2**30})
+        print(f"phase 18 {name} {N_RAYS} rays x {cfg.nstep_max} RK4 steps with trajectories: "
+              f"trace {t_trace:.1f} ms; ray diagnostics {t_diag:.1f} ms (peak "
+              f"{peak_diag / 2**30:.2f} GiB), {processor.__name__.split('.')[-1]}.process "
+              f"{t_proc:.1f} ms (peak {peak_proc / 2**30:.2f} GiB){ox}; card vs CPU on the "
+              f"first {N_HOST_CHECK} rays: diagnostics {diag_err:.3e} of scale, files {files} "
+              f"equal within {POST_TOL} on {card}")
+
+
+# the files the post-processor CLI writes for each example, by run label
+POST_FILES = {
+    "slab": ["res_and_cut.{L}", "eq_X_profiles.{L}.nc", "kx_profiles_slab.{L}.nc",
+             "kx_profiles_slab.{L}", "graphics_description_slab.dat",
+             "ray_detailed_diagnostics_slab.{L}.nc", "deposition_profiles.{L}.nc"],
+    "solovev": ["eq_RZ_grids.{L}.nc", "eq_contours.{L}.nc", "normalized_psi.{L}.nc",
+                "eq_radial_profiles.{L}.nc", "graphics_description_solovev.dat",
+                "ray_detailed_diagnostics.{L}.nc"],
+    "axisym_toroid": ["eq_RZ_grids.{L}.nc", "eq_contours.{L}.nc", "normalized_psi.{L}.nc",
+                      "eq_radial_profiles.{L}.nc", "graphics_description_axisym_toroid.dat",
+                      "ray_detailed_diagnostics.{L}.nc"],
+    "multiple_mirror": ["eq_contours.{L}.nc", "eq_radial_profiles.{L}.nc",
+                        "graphics_description_mirror.dat", "ray_detailed_diagnostics.{L}.nc",
+                        "OX_conversion.{L}"],
+}
+
+
+def post_cli_phase(run):
+    """Phase 19: ``python -m rays_tpu_torch.run`` and then ``python -m
+    rays_tpu_torch.post.process`` as a user calls them (the default device)
+    on the damped slab, Solovev, EQDSK and mirror examples, each in a
+    directory of its own and the four side by side; every expected file
+    read back."""
+    from scipy.io import netcdf_file
+
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.config import schema
+    from rays_tpu_torch.post.xy_curves import read_xy_curves_nc
+
+    def write_text(text):
+        return lambda d: _write(os.path.join(d, "rays.in"), text)
+
+    cases = {
+        "damped slab": write_text(examples.SLAB_ECH_DAMPED),
+        "Solovev": write_text(examples.SOLOVEV_ECH_90GHZ),
+        "EQDSK": lambda d: spline_example_files(examples.write_eqdsk_toroid_example, d),
+        "mirror": lambda d: spline_example_files(examples.write_mirror_example, d),
+    }
+
+    def pipeline(name, tmp):
+        t0 = time.perf_counter()
+        path = cases[name](tmp)
+        cfg, _ = schema.from_file(path)
+        run_cli(path, tmp)
+        _write(os.path.join(tmp, "post_process_rays.in"), "&post_process_list\n/\n")
+        out = run_module("rays_tpu_torch.post.process", [path], tmp)
+        require("device: cuda" in out, f"the post-processor did not run on the card:\n{out}")
+        label = cfg.run_label
+        npoints = np.array(netcdf_file(os.path.join(tmp, f"run_results.{label}.nc"), "r",
+                                       mmap=False).variables["npoints"][:])
+        for fname in (f.format(L=label) for f in POST_FILES[cfg.equilib_model]):
+            full = os.path.join(tmp, fname)
+            require(os.path.exists(full), f"{name}: the post-processor wrote no {fname}")
+            if fname.endswith(".nc") and fname.startswith(("eq_X", "kx_", "eq_radial")):
+                curves = read_xy_curves_nc(full)
+                require(curves and all(np.isfinite(c.curve).all() for c in curves),
+                        f"{name}: {fname}")
+            elif fname.endswith(".nc"):
+                data = _read_outputs(full)
+                require(all(np.isfinite(v).all() for v in data.values() if v.dtype.kind == "f"),
+                        f"{name}: {fname} has non-finite values")
+                if fname.startswith("ray_detailed"):
+                    require(np.array_equal(data["npoints"], npoints), f"{name}: {fname} npoints")
+            else:
+                require(os.path.getsize(full) > 0, f"{name}: {fname} is empty")
+        return len(POST_FILES[cfg.equilib_model]), time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as root:
+        with concurrent.futures.ThreadPoolExecutor(len(cases)) as pool:
+            futures = {}
+            for name in cases:
+                d = os.path.join(root, name.replace(" ", "_"))
+                os.mkdir(d)
+                futures[name] = pool.submit(pipeline, name, d)
+            done = {name: f.result() for name, f in futures.items()}
+    for name, (n, sec) in done.items():
+        run.paths.append({"name": f"post_cli_{name.replace(' ', '_').lower()}",
+                          "ms": sec * 1e3, "files": n})
+    print("phase 19 run CLI then post-processor CLI, four examples side by side on "
+          f"{run.card}: " + "; ".join(f"{name}: {n} files read back, {s:.1f} s"
+                                      for name, (n, s) in done.items()))
+
+
+def _write(path, text):
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def spline_example_files(write_example, directory):
+    """The spline example's files cut to SPLINE_EXAMPLE_STEPS; the path of
+    rays.in."""
+    path = write_example(directory)
+    with open(path) as f:
+        text = f.read()
+    require(f"nstep_max={SPLINE_BATCH_STEPS}" in text, "a spline example changed")
+    return _write(path, text.replace(f"nstep_max={SPLINE_BATCH_STEPS}",
+                                     f"nstep_max={SPLINE_EXAMPLE_STEPS}"))
+
+
+class Run:
+    """What every phase reads: the card's nvidia-smi line, the device, and
+    the paths line being filled."""
+
+    def __init__(self, card, dev):
+        self.card, self.dev, self.paths = card, dev, []
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="chip smoke test of rays_tpu_torch")
+    ap.add_argument("--group", choices=GROUPS,
+                    help="run one group alone, at its full depth (default: every group)")
+    ap.add_argument("--only-spline", action="store_true", help="the same as --group spline")
+    args = ap.parse_args(argv)
+    if args.only_spline:
+        if args.group not in (None, "spline"):
+            ap.error("--only-spline is --group spline")
+        args.group = "spline"
+
+    t_start = time.perf_counter()
+    # phase 1: the device
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs only on a CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = smi.splitlines()[0].strip()
+    print(card)
+    kind = torch.cuda.get_device_name(0)
+    groups = GROUPS if args.group is None else (args.group,)
+    print(f"phase 1 device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"count {torch.cuda.device_count()}; groups {', '.join(groups)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run = Run(card, torch.device("cuda", 0))
+    every = args.group is None
+
+    kernels = kernel_phases(run) if "kernel" in groups else None
+    if "adjoint" in groups:
+        training_phase(run, TRAIN_STEPS_DEFAULT if every else TRAIN_STEPS)
+    if "plain" in groups:
+        plain_phases(run, kernels["big64_end"] if kernels else None)
+    if "adjoint" in groups:
+        sg_training_phase(run, SG_ADJOINT_STEPS_DEFAULT if every else SG_ADJOINT_STEPS)
+    if "spline" in groups:
+        spline_phases(run)
+    elif "adjoint" in groups:
+        eqdsk_adjoint_phase(run)
+    if "post" in groups:
+        post_main_path_phase(run)
+        post_spline_phase(run)
+        post_cli_phase(run)
+
+    print(f"total wall time {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"paths": run.paths}))
+    if kernels is not None:
+        print(json.dumps({"kernels": [{
             "name": name,
             "route": "cuda",
             "source": "rays_tpu_torch/csrc/slab_rk4.cu",
@@ -1040,8 +1519,8 @@ def main():
             "bound_by": bound_by,
             # no single PyTorch call computes an RK4 trajectory
             "library_ms": None,
-        })
-    print(json.dumps({"kernels": kernels}))
+        } for name, (launches, err, (t_kern, t_plain), (bound, bound_by))
+            in ((k, kernels[k]) for k in ("slab_rk4", "slab_rk4_damped"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

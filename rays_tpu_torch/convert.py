@@ -3,8 +3,10 @@ both packages can compute on identical inputs.
 
 ``params_from_numpy`` takes the JAX ``Params`` as nested NamedTuples of
 numpy arrays (what ``jax.tree_util.tree_map(np.asarray, params)`` gives);
-``config_from_dict`` takes ``dataclasses.asdict(cfg)``.  Neither imports
-JAX: the NamedTuples are matched by class name and field names.
+``config_from_dict`` takes ``dataclasses.asdict(cfg)``;
+``results_from_numpy`` takes a JAX ``RayResults`` of numpy arrays, so that
+both packages post-process the same trajectories.  None imports JAX: the
+NamedTuples are matched by class name and field names.
 """
 
 from __future__ import annotations
@@ -83,3 +85,25 @@ def config_from_dict(d):
     d["eq_static"] = _EQ_STATIC[d["equilib_model"]](**eq)
     d["rayinit_static"] = _INIT_STATIC[d["ray_init_model"]](**d["rayinit_static"])
     return types.Config(**d)
+
+
+def results_from_numpy(tree, device="cpu", dtype=torch.float64):
+    """JAX ``RayResults`` of numpy leaves -> the port's ``RayResults`` on
+    ``device``: floating fields in ``dtype``, ``npoints`` and
+    ``stop_flag`` as int32.  The JAX-only ``end_ray_comp`` (the
+    compensated sum, which the port does not have) must be ``None``."""
+    from rays_tpu_torch.tracing.trace import RayResults
+
+    if type(tree).__name__ != "RayResults":
+        raise ValueError(f"expected a RayResults, got {type(tree).__name__}")
+    extra = set(tree._fields) - set(RayResults._fields)
+    if extra - {"end_ray_comp"} or getattr(tree, "end_ray_comp", None) is not None:
+        raise ValueError(f"RayResults fields {sorted(extra)} have no counterpart in the port")
+
+    def leaf(name):
+        a = np.asarray(getattr(tree, name))
+        if name in ("npoints", "stop_flag"):
+            return torch.from_numpy(a.astype(np.int32)).to(device)
+        return torch.from_numpy(a.astype(np.float64)).to(device=device, dtype=dtype)
+
+    return RayResults(*(leaf(name) for name in RayResults._fields))

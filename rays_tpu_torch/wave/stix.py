@@ -10,6 +10,8 @@ Functions of the per-species tensors ``alpha = (omega_p/omega)^2`` and
 * ``poly_pieces``: the pole-free species products (p, t, u, q, q1, q2)
   under the reference's hand-derived ray derivatives
   (deriv_cold.f90:77-101): t = prod_s(1-gamma_s^2), u = t*S, q = t*R*L.
+* ``cold_eps_hermitian``: the cold dielectric tensor itself, complex
+  (B, 3, 3); nothing on the tracing path needs it.
 
 Leave-one-out and leave-two-out products are masked products, never
 divisions, so gamma = +-1 is exactly representable.
@@ -64,3 +66,18 @@ def poly_pieces(alpha, gamma):
     q = 2.0 * u - t + q1 * q2
     p = 1.0 - alpha.sum(-1)
     return p, t, u, q, q1, q2
+
+
+def cold_eps_hermitian(alpha, gamma):
+    """Cold dielectric tensor (Hermitian; no collisions), complex (B, 3, 3)
+    (dielectric_cold, suscep_m.f90:142-176):
+    eps = [[S, -iD, 0], [iD, S, 0], [0, 0, P]]."""
+    S, D, P, _, _ = rlsdp(alpha, gamma)
+    z = torch.zeros_like(S)
+
+    def mat(rows):
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    re = mat([[S, z, z], [z, S, z], [z, z, P]])
+    im = mat([[z, -D, z], [D, z, z], [z, z, z]])
+    return torch.complex(re, im)

@@ -257,3 +257,161 @@ def assert_leaves_close(port_tree, jax_tree, tol, path=""):
     else:
         np.testing.assert_array_equal(got, ref, err_msg=path)
     return 1
+
+
+# --------------------------------------------------------------------------
+# post-processing: results carried across, output files compared
+# --------------------------------------------------------------------------
+
+
+def carry_results(results, device="cpu"):
+    """A JAX RayResults as the port's, on ``device``: the same trajectories
+    go through both post-processors."""
+    return convert.results_from_numpy(jax.tree_util.tree_map(np.asarray, results), device)
+
+
+def _nc_read(path):
+    from scipy.io import netcdf_file
+
+    f = netcdf_file(path, "r", mmap=False)
+    try:
+        dims = dict(f.dimensions)
+        attrs = {k: v for k, v in f._attributes.items()}
+        out = {k: (v.dimensions, np.array(v.data)) for k, v in f.variables.items()}
+        return dims, attrs, out
+    finally:
+        f.close()
+
+
+def assert_arrays_close(got, ref, tol, what):
+    """Equal shapes and dtypes; numbers within ``tol`` of the reference's
+    largest magnitude, characters and integers equal."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape and got.dtype == ref.dtype, (what, got.shape, ref.shape)
+    if ref.dtype.kind == "f" and ref.size:
+        scale = max(float(np.abs(ref).max()), 1e-300)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=tol * scale, err_msg=what)
+    else:
+        np.testing.assert_array_equal(got, ref, err_msg=what)
+
+
+def assert_nc_files_match(got_path, ref_path, tol, tols=None, skip=("date_vector",)):
+    """Two netCDF files: the same dimensions, attributes and variables in
+    the same order, each variable within its tolerance (``tols`` by name,
+    else ``tol``) of the reference's scale; ``skip`` holds the wall-clock
+    stamps.  Files of named curves are held curve by curve."""
+    gd, ga, gv = _nc_read(got_path)
+    rd, ra, rv = _nc_read(ref_path)
+    assert gd == rd, (got_path, gd, rd)
+    assert {k: v for k, v in ga.items() if k not in skip} == \
+        {k: v for k, v in ra.items() if k not in skip}, got_path
+    assert list(gv) == list(rv), (got_path, list(gv), list(rv))
+    curves = "curve" in rv and "curve_name" in rv
+    for name in rv:
+        if name in skip:
+            continue
+        assert gv[name][0] == rv[name][0], (got_path, name)
+        if curves and name in ("grid", "curve"):
+            continue
+        assert_arrays_close(gv[name][1], rv[name][1], (tols or {}).get(name, tol),
+                            f"{got_path}:{name}")
+    if curves:
+        from rays_tpu_torch.post.xy_curves import read_xy_curves_nc
+
+        for g, r in zip(read_xy_curves_nc(got_path), read_xy_curves_nc(ref_path)):
+            assert (g.grid_name, g.curve_name) == (r.grid_name, r.curve_name)
+            assert_arrays_close(g.grid, r.grid, tol, f"{got_path}:{r.curve_name} grid")
+            assert_arrays_close(g.curve, r.curve, tol, f"{got_path}:{r.curve_name}")
+
+
+def assert_text_files_match(got_path, ref_path, rtol=1e-8, atol=0.0):
+    """Two text files token by token: words equal, numbers within rtol of
+    the larger plus atol (the last printed digit may round either way)."""
+    with open(got_path) as f:
+        got = f.read().split("\n")
+    with open(ref_path) as f:
+        ref = f.read().split("\n")
+    assert len(got) == len(ref), (got_path, len(got), len(ref))
+    for i, (gl, rl) in enumerate(zip(got, ref)):
+        gt, rt = gl.split(), rl.split()
+        assert len(gt) == len(rt), (got_path, i, gl, rl)
+        for a, b in zip(gt, rt):
+            try:
+                fa, fb = float(a), float(b)
+            except ValueError:
+                assert a == b, (got_path, i, gl, rl)
+                continue
+            assert abs(fa - fb) <= rtol * max(abs(fa), abs(fb)) + atol, (got_path, i, a, b)
+
+
+def run_in_dirs(tmp_path, monkeypatch, jax_fn, port_fn, inputs=None):
+    """jax_fn run with tmp_path/jax as its working directory, port_fn with
+    tmp_path/port, each holding the same input files (name -> text or
+    bytes): (port dir, jax dir, port value, jax value)."""
+    out = []
+    for tag, fn in (("jax", jax_fn), ("port", port_fn)):
+        d = tmp_path / tag
+        d.mkdir()
+        for name, data in (inputs or {}).items():
+            (d / name).write_bytes(data if isinstance(data, bytes) else data.encode())
+        monkeypatch.chdir(d)
+        out.append(fn())
+    return str(tmp_path / "port"), str(tmp_path / "jax"), out[1], out[0]
+
+
+def assert_output_dirs_match(got_dir, ref_dir, tol=1e-12, tols=None, text_atol=0.0,
+                             ignore=()):
+    """Every file of two output directories, name by name: netCDF files by
+    ``assert_nc_files_match``, the others as text.  Returns the names."""
+    names = sorted(p for p in os.listdir(ref_dir) if p not in ignore)
+    assert sorted(p for p in os.listdir(got_dir) if p not in ignore) == names, (
+        sorted(os.listdir(got_dir)), names)
+    for name in names:
+        g, r = os.path.join(got_dir, name), os.path.join(ref_dir, name)
+        if name.endswith(".nc"):
+            assert_nc_files_match(g, r, tol, tols)
+        else:
+            assert_text_files_match(g, r, atol=text_atol)
+    return names
+
+
+def jax_trace(cfg, params, v0, st, pwr):
+    """The JAX package's trace_batch, compiled."""
+    from rays_tpu.tracing import trace as jtrace
+
+    return jax.jit(lambda p, v, s, w: jtrace.trace_batch(cfg, p, v, s, w))(params, v0, st, pwr)
+
+
+# the damped slab example cut to 100 steps of 1 cm: the rays are absorbed
+# (TOTAL_ABSORPTION) at 74-83 points instead of 293-329 points of 2.5 mm
+DAMPED_SLAB_SHORT = dict(ds=1.0e-2, nstep_max=100)
+
+
+def post_case(name, directory):
+    """(jax cfg, params, RayResults) of a small traced case of each
+    geometry: the damped slab, the Solovev fan (RK4, 60 steps), the EQDSK
+    tokamak of ``write_solovev_geqdsk`` (RK4, 60 steps) and the damped
+    four-coil mirror of ``write_mirror_inputs`` (100 steps)."""
+    from rays_tpu.config import schema as jschema
+    from rays_tpu.config.namelist import parse_namelist as jparse
+
+    directory = str(directory)
+    if name == "slab":
+        cfg, params, v0, st, pwr = jax_case(jex.SLAB_ECH_DAMPED, **DAMPED_SLAB_SHORT)
+    elif name == "solovev":
+        cfg, params, v0, st, pwr = jax_case(jex.SOLOVEV_ECH_90GHZ, ode_solver_name="RK4_ODE",
+                                            nstep_max=60)
+    elif name == "eqdsk":
+        from test_axisym import AXISYM_TMPL
+
+        geqdsk = write_solovev_geqdsk(os.path.join(directory, "solovev.geqdsk"))
+        cfg, params = jschema.from_namelist(jparse(AXISYM_TMPL.format(
+            MAG="eqdsk_magnetics_spline_interp", EQDSK=geqdsk)))
+        v0, st, pwr = jax_launch(cfg, params)
+    elif name == "mirror":
+        cfg, params = jschema.from_file(write_mirror_inputs(
+            directory, FRF="22.e9", N0="1.0e18", DAMP="damp_fund_ECH", NSTEP=100))
+        v0, st, pwr = jax_launch(cfg, params)
+    else:
+        raise ValueError(name)
+    return cfg, params, jax_trace(cfg, params, v0, st, pwr)

@@ -31,6 +31,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "rays_tpu_torch.utils.eqdsk_io, rays_tpu_torch.utils.solovev_2_eqdsk, "
     "rays_tpu_torch.utils.mirror_magnetics, rays_tpu_torch.rayinit.axisym_toroid, "
     "rays_tpu_torch.rayinit.one_ray, rays_tpu_torch.rayinit.file_input",
+    "rays_tpu_torch.ops.bisect, rays_tpu_torch.ops.invert, rays_tpu_torch.ops.quadrature, "
+    "rays_tpu_torch.ops.vectors, rays_tpu_torch.wave.stix, rays_tpu_torch.post.xy_curves, "
+    "rays_tpu_torch.post.ray_diags, rays_tpu_torch.post.slab_processor, "
+    "rays_tpu_torch.post.process, rays_tpu_torch.post.toroid_processor, "
+    "rays_tpu_torch.post.ox_conversion, rays_tpu_torch.post.mirror_processor, "
+    "rays_tpu_torch.post.grid",
 ])
 def test_import_pulls_in_no_jax(modules):
     code = (f"import sys, {modules}\n"
@@ -75,6 +81,24 @@ def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
     with pytest.raises((RuntimeError, AssertionError)):
         trun.main([str(path), "--netcdf"])
     assert not list(tmp_path.glob("run_results.*"))
+
+
+def test_post_processor_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
+    """``python -m rays_tpu_torch.post.process`` puts the results on the
+    card unless told otherwise, and without one fails before it reads or
+    writes a file."""
+    from rays_tpu_torch.post import process as tpp
+
+    _no_cuda()
+    (tmp_path / "rays.in").write_text(examples.SLAB_ECH_90GHZ)
+    monkeypatch.chdir(tmp_path)
+    opened = []
+    monkeypatch.setattr(tpp, "load_results_nc", lambda *a, **k: opened.append(a))
+    with pytest.raises((RuntimeError, AssertionError)):
+        tpp.main(["rays.in"])
+    with pytest.raises((RuntimeError, AssertionError)):
+        tpp.main(["rays.in", "--device", "cuda"])
+    assert not opened and sorted(p.name for p in tmp_path.iterdir()) == ["rays.in"]
 
 
 def test_non_cpu_tensors_never_run_the_plain_tracer():
