@@ -11,7 +11,7 @@ raises and the script exits non-zero.
     python3 chip_smoke.py                 # every group, from the root of a checkout
     python3 chip_smoke.py --group adjoint # one group alone, at its full depth
 
-The phases come in five groups (phase 1, the device, runs in every call):
+The phases come in six groups (phase 1, the device, runs in every call):
 
 * kernel, phases 2-8: the build; the undamped slab ECH 90 GHz main path
   (32,768 rays x 500 steps, f64 and f32, timed against the plain twin and
@@ -44,6 +44,22 @@ The phases come in five groups (phase 1, the device, runs in every call):
   the O-X analysis, held to the CPU on 64 rays.  19: the run CLI and then
   the post-processor CLI on the damped slab, Solovev, EQDSK and mirror
   examples, every expected file read back.
+* tools, phases 20-24: 20 the batch scan (tools/run_batch_scan.py, B1 at
+  f32 and f64 over 256 ... 524,288 rays, rays/s at each size, the largest
+  batch held to phase 5's result) and the ds scan (tools/run_ds_scan.py,
+  RK4 through B1 with its convergence order; the adaptive ladder in a
+  process of its own); 21 tools/validate_all.py, every stage PASS; 22 the
+  erays pipeline on the damped slab through B1, its netCDF file read back
+  through the port's netCDF4 shim, and the docs; 23 the rays split across
+  processes: a world of 1 over NCCL (the damped 32,768-ray trace and its
+  all_reduced profile against the unsplit run) and
+  entry.dryrun_multiprocess(2), two processes on the one card over gloo;
+  24 the compensated carry (f32, 32,768 rays x 100 steps, plain route) and
+  the inverse demo at its start, card against CPU (INVERSE_STEPS RK4
+  steps; the default call cuts them to INVERSE_STEPS_DEFAULT and says so).
+  The batch and RK4 ds scans run alone on the card; the SG ladder,
+  validate_all and the dry run then run as processes of their own beside
+  phases 22-24.
 
 The last lines are the total wall time, a JSON line of the times of the
 paths without a kernel, a JSON summary of the kernels (when the kernel
@@ -111,7 +127,7 @@ TRAIN_STEPS_DEFAULT = 100   # ... in the default call, which runs every group
 SG_ADJOINT_STEPS = 100      # outer steps of the adaptive training step
 SG_ADJOINT_STEPS_DEFAULT = 50
 SG_FD_STEPS = 20        # outer steps of its finite-difference check
-GROUPS = ("kernel", "adjoint", "plain", "spline", "post")
+GROUPS = ("kernel", "adjoint", "plain", "spline", "post", "tools")
 # post-processing (phases 17-19): the rays the CPU recomputes, and the
 # tolerances of tests/test_torch_post_*.py for the card against the CPU
 N_HOST_CHECK = 64
@@ -256,7 +272,7 @@ def plain_run(cfg_, params_, v_, st_, w_):
     totals = rk45.stats.totals()
     rk45.stats = None
     require(fused_slab.LAUNCHES == before, "the plain route launched the kernel")
-    require(all(t.is_cuda for t in res), "results left the card")
+    require(all(t.is_cuda for t in res if t is not None), "results left the card")
     return res, ms, totals, torch.cuda.max_memory_allocated()
 
 
@@ -299,7 +315,7 @@ def timed_peak(fn):
 
 def first_rays(res, n):
     """The first n rays of a RayResults."""
-    return type(res)(*(t[:n] for t in res))
+    return type(res)(*(None if t is None else t[:n] for t in res))
 
 
 def require_same_diagnostics(card, host, what):
@@ -749,7 +765,7 @@ def kernel_phases(run):
               f"bound {bound / t_kern:.4f}{expanded} on {card}")
         return bound, by
 
-    times, bounds = {}, {}
+    times, bounds, fill = {}, {}, {}
     vf, stf, wf = examples.replicate_rays(v0, st0, pwr, N_FILL)
     for dt, p_, v_, w_ in ((f32, params32, vb32, wb32), (f64, params, vb, wb)):
         t_kern, t_plain, runs = time_plain_and_kernel(fused_slab, cfg_b, p_, v_, stb, w_)
@@ -765,6 +781,9 @@ def kernel_phases(run):
         print(f"phase 5 {name} {N_FILL} rays x {cfg.nstep_max} steps (card filled): kernel "
               f"{t_fill:.3f} ms ({N_FILL / t_fill * 1e3:.0f} rays/s)")
         report_bound("phase 5", name, ops_u, N_FILL, cfg.nv, dt, t_fill)
+        # the filled card's result, which phase 20's largest batch is held to
+        res_fill = fused_slab.trace_batch_fused(cfg_b, p_, vf.to(dt), stf, wf.to(dt))
+        fill[dt] = (res_fill.end_ray_vec, res_fill.npoints)
     del vf, stf, wf
 
     # phase 6: the CLI end to end, in a temporary directory
@@ -866,7 +885,7 @@ def kernel_phases(run):
     return {"slab_rk4": (main_launches, abs64, times[f64], bounds[f64]),
             "slab_rk4_damped": (damped_launches, db_max_abs, damped_times[f64],
                                 damped_bounds[f64]),
-            "big64_end": big64.end_ray_vec}
+            "big64_end": big64.end_ray_vec, "fill": fill}
 
 
 def training_phase(run, steps):
@@ -1431,6 +1450,383 @@ def post_cli_phase(run):
                                       for name, (n, s) in done.items()))
 
 
+# --------------------------------------------------------------------------
+# the tools group: phases 20-24
+# --------------------------------------------------------------------------
+
+SCAN_SIZES = (256, 1024, 4096, 16384, 65536, 262144, 524288)   # tools/run_batch_scan.py
+RK4_ORDER_TOL = 0.5         # measured RK4 order of the ds scan's first rungs, against 4
+SPLIT_RTOL, SPLIT_ATOL = 1e-10, 1e-14   # __graft_entry__.py: profile and ray_vec
+COMP_STEPS = 100            # the compensated carry: f32 slab x 100 steps
+COMP_ULP = 1.2e-7           # tests/test_precision.py: the carry under 100 ulp of scale
+INVERSE_STEPS = 80          # scripts/inverse_demo.py's depth
+INVERSE_STEPS_DEFAULT = 40  # ... in the default call, which runs every group
+INVERSE_RTOL = 1e-10        # card vs CPU at the starting point, of scale
+INVERSE_ITERS = 2           # Adam iterations timed (the demo runs 50, then Gauss-Newton)
+TOOL_TIMEOUT = 600          # seconds for each process of the group
+
+
+def _tool(name):
+    """A module of tools/ imported by its path."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(f"tool_{name}",
+                                                  os.path.join(root, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _start_tool(name, args, out_path):
+    """``python tools/<name>.py args`` in the background, its output to
+    ``out_path``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    log = open(out_path, "w")
+    proc = subprocess.Popen([sys.executable, os.path.join(root, "tools", f"{name}.py"), *args],
+                            cwd=root, stdout=log, stderr=subprocess.STDOUT, text=True)
+    return proc, log
+
+
+def _finish_tool(proc, log, what):
+    """Wait for a background tool (TOOL_TIMEOUT), require exit 0 and
+    return its output and its last line as JSON."""
+    try:
+        proc.wait(timeout=TOOL_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    with open(log.name) as f:
+        out = f.read()
+    require(proc.returncode == 0, f"{what} exited {proc.returncode}:\n{out[-4000:]}")
+    return out, json.loads(out.strip().splitlines()[-1])
+
+
+def tools_phases(run, fill, inverse_steps):
+    """Phases 20-24: the scans, validate_all, the erays pipeline and the
+    docs, rays split across processes, the compensated carry and the
+    inverse demo.  The batch scan runs first and alone on the card; then
+    three tools start as processes of their own (the ds scan's adaptive
+    ladder, validate_all, the two-process dry run) and run side by side
+    with phases 22-24, whose times include that sharing; their lines come
+    when they end.  ``fill``: phase 5's result at the filled card, or None
+    when the kernel group did not run; ``inverse_steps``: the RK4 steps of
+    the inverse demo's traces."""
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.core.types import tree_to
+    from rays_tpu_torch.tracing import fused_slab
+    from rays_tpu_torch.tracing.trace import trace_rays
+
+    card, dev, paths = run.card, run.dev, run.paths
+    f32, f64 = torch.float32, torch.float64
+    fused_slab.load_libraries()     # built once, before any process of the group starts
+
+    # phase 20: the batch scan, B1 at f32 and f64 over 256 ... 524,288 rays
+    batch_tool = _tool("run_batch_scan")
+    require(tuple(batch_tool.SIZES) == SCAN_SIZES, f"batch sizes {batch_tool.SIZES}")
+    fused_slab.LAUNCHES = 0
+    rows = batch_tool.run(dev.type, SCAN_SIZES)
+    launches = fused_slab.LAUNCHES
+    # a warm-up and a timed trace per size and precision
+    require(launches == 2 * 2 * len(SCAN_SIZES), f"the batch scan launched B1 {launches} times")
+    for name, rs in rows.items():
+        print(f"phase 20 batch scan {name}, slab x 500 steps through B1 ({launches} launches "
+              f"in all): " + ", ".join(f"{r['batch']}: {r['rays_per_s']:.0f} rays/s "
+                                       f"({r['wall_s'] * 1e3:.3f} ms)" for r in rs)
+              + f" on {card}")
+        paths.append({"name": f"batch_scan_{name}", "launches": launches // 2,
+                      "ms": [r["wall_s"] * 1e3 for r in rs],
+                      "rays_per_s": [r["rays_per_s"] for r in rs], "batch": list(SCAN_SIZES)})
+    # the largest batch again, held to phase 5's kernel result for the same rays
+    cfg, params, v0, st0, pwr = examples.setup_example(device=dev)
+    cfg = dataclasses.replace(cfg, save_trajectory=False)
+    vf, stf, wf = examples.replicate_rays(v0, st0, pwr, SCAN_SIZES[-1])
+    if fill is None:   # the kernel group did not run: phase 5's launch, here
+        fill = {dt: (lambda r: (r.end_ray_vec, r.npoints))(fused_slab.trace_batch_fused(
+            cfg, tree_to(params, dtype=dt), vf.to(dt), stf, wf.to(dt))) for dt in (f32, f64)}
+    big = trace_rays(cfg, params, vf, stf, wf)
+    require(torch.equal(big.end_ray_vec, fill[f64][0]) and torch.equal(big.npoints, fill[f64][1]),
+            "the largest f64 batch differs from phase 5's")
+    big32 = trace_rays(cfg, tree_to(params, dtype=f32), vf.to(f32), stf, wf.to(f32))
+    require(torch.equal(big32.end_ray_vec, fill[f32][0]) and torch.equal(big32.npoints, fill[f32][1]),
+            "the largest f32 batch differs from phase 5's")
+    err32 = scaled_err(big32.end_ray_vec, fill[f64][0], per_ray_axis=-1)
+    require(err32 <= F32_RTOL, f"the largest f32 batch's endpoints {err32:.3e} off the f64")
+    print(f"phase 20 largest batch ({SCAN_SIZES[-1]} rays): f64 and f32 bit-equal to phase "
+          f"5's B1 results for the same rays, f32 within {err32:.3e} of scale of the f64")
+    del vf, stf, wf, big, big32
+
+    # phase 20: the ds scan, RK4 through B1 here, the adaptive ladder in
+    # a process of its own
+    ds_tool = _tool("run_ds_scan")
+    ds_rows, orders, ds_launches = ds_tool.run(dev.type, ("RK4_ODE",), log=lambda m: None)
+    rk4 = orders["RK4_ODE"]
+    require(ds_launches["RK4_ODE"] == ds_tool.N_RUNGS,
+            f"the RK4 ds scan launched B1 {ds_launches['RK4_ODE']} times")
+    require(abs(rk4[0] - 4.0) < RK4_ORDER_TOL, f"RK4 convergence order {rk4}")
+    print(f"phase 20 ds scan RK4, {ds_tool.N_RUNGS} rungs (ds0/2^i, {ds_tool.N0}*2^i steps) "
+          f"through B1 ({ds_launches['RK4_ODE']} launches): errors vs the finest "
+          f"{[r['err_vs_finest'] for r in ds_rows]}, measured orders {rk4}; wall "
+          f"{[round(r['wall_s'] * 1e3, 3) for r in ds_rows]} ms")
+    paths.append({"name": "ds_scan_rk4", "ms": sum(r["wall_s"] for r in ds_rows) * 1e3,
+                  "launches": ds_launches["RK4_ODE"], "orders": rk4})
+
+    import concurrent.futures
+
+    from rays_tpu_torch import entry
+
+    tmp = tempfile.TemporaryDirectory()
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    started = time.perf_counter()
+    bg = {"ds_sg": _start_tool("run_ds_scan", [
+              "--device", dev.type, "--solvers", "SG_ODE",
+              "--out", os.path.join(tmp.name, "ds_sg.txt")], os.path.join(tmp.name, "ds_sg.log")),
+          "validate": _start_tool("validate_all", ["--device", dev.type],
+                                  os.path.join(tmp.name, "validate.log"))}
+    dryrun = pool.submit(entry.dryrun_multiprocess, 2, dev.type, None, None,
+                         entry.DRYRUN_STEPS, TOOL_TIMEOUT)
+    try:
+        erays_phase(run)
+        split_phase(run)
+        compensated_phase(run)
+        inverse_phase(run, inverse_steps)
+
+        out, sg = _finish_tool(*bg.pop("ds_sg"), "tools/run_ds_scan.py --solvers SG_ODE")
+        sg_rows = sg["rows"]
+        require(sg["launches"] == {"SG_ODE": 0}, f"the SG ladder launched B1: {sg['launches']}")
+        require([r["min_npoints"] for r in sg_rows] == [r["nstep"] + 1 for r in sg_rows],
+                f"SG ladder npoints {[r['min_npoints'] for r in sg_rows]}")
+        print(f"phase 20 ds scan SG (plain, a process of its own): errors vs the finest "
+              f"{[r['err_vs_finest'] for r in sg_rows]}, orders {sg['orders']['SG_ODE']}; "
+              f"wall {[round(r['wall_s'], 3) for r in sg_rows]} s")
+        paths.append({"name": "ds_scan_sg", "ms": sum(r["wall_s"] for r in sg_rows) * 1e3})
+
+        out, val = _finish_tool(*bg.pop("validate"), "tools/validate_all.py")
+        stages = val["stages"]
+        require(list(stages) == ["slab", "damped", "solovev", "axisym", "mirror"]
+                and all(r["ok"] for r in stages.values()), f"validate_all: {stages}")
+        for name in ("slab", "damped"):
+            require(stages[name]["route"] == "kernel" and stages[name]["launches"] >= 1,
+                    f"validate_all {name} did not run B1: {stages[name]}")
+        for name in ("solovev", "axisym", "mirror"):
+            require(stages[name]["route"] == "plain" and stages[name]["launches"] == 0,
+                    f"validate_all {name}: {stages[name]}")
+        print("phase 21 tools/validate_all.py on the card: " + "; ".join(
+            f"{n} PASS, {r['route']} ({r['launches']} launches), trace {r['wall_s']:.3f} s, "
+            f"stage {r['stage_s']:.2f} s, npoints {r['npoints']}, max residual "
+            f"{r['max_residual']:.3e}" for n, r in stages.items())
+            + "; mirror: the port's four-coil mirror in place of the reference's MPEX example")
+        paths.append({"name": "validate_all", "ms": sum(r["stage_s"] for r in stages.values())
+                      * 1e3, "stages_s": {n: r["stage_s"] for n, r in stages.items()}})
+
+        reports = dryrun.result(timeout=TOOL_TIMEOUT)
+        require([r["backend"] for r in reports] == ["gloo", "gloo"]
+                and [r["device"] for r in reports] == [str(dev)] * 2,
+                f"dry run processes: {reports}")
+        r0 = reports[0]
+        require(all(r[k] == r0[k] for r in reports for k in ("loss", "grad_l1")),
+                "the two processes' losses or gradients differ")
+        print(f"phase 23 entry.dryrun_multiprocess(2): two processes on the one card over gloo "
+              f"(NCCL refuses two ranks on one device), damped slab {r0['rays'][2]} rays x "
+              f"{r0['nstep']} steps with trajectories, rays {[r['rays'][:2] for r in reports]}: "
+              f"split == whole at __graft_entry__.py's tolerances on each; loss "
+              f"{r0['loss']:.12e}, gradient l1 {r0['grad_l1']:.6e} over {r0['leaves']} leaves, "
+              f"deposition {r0['deposition_sum']:.6e}; split step "
+              f"{[round(r['split_s'], 2) for r in reports]} s, whole step "
+              f"{[round(r['whole_s'], 2) for r in reports]} s; no scaling is claimed (one card)")
+        paths.append({"name": "dryrun_multiprocess_2", "ms": max(r["split_s"] for r in reports)
+                      * 1e3, "whole_ms": max(r["whole_s"] for r in reports) * 1e3})
+    finally:
+        for proc, log in bg.values():
+            proc.kill()
+            proc.wait()
+            log.close()
+        pool.shutdown(wait=True, cancel_futures=True)
+        tmp.cleanup()
+    print(f"phases 20-24: {time.perf_counter() - started:.1f} s from the start of the "
+          f"side-by-side processes")
+
+
+def erays_phase(run):
+    """Phase 22: the erays pipeline on the damped slab through B1, its
+    netCDF file read back through the port's netCDF4 shim, and the docs."""
+    from scipy.io import netcdf_file
+
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.compat import netCDF4 as shim
+    from rays_tpu_torch.tracing import fused_slab
+    from rays_tpu_torch.utils import doc_modules, erays
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        _write(os.path.join(tmp, "rays.in"), examples.SLAB_ECH_DAMPED)
+        os.chdir(tmp)
+        try:
+            fused_slab.LAUNCHES = 0
+            t0 = time.perf_counter()
+            out = erays.run_pipeline("rays.in", device=str(run.dev))
+            wall = time.perf_counter() - t0
+            launches = fused_slab.LAUNCHES
+        finally:
+            os.chdir(cwd)
+        require(launches >= 1, "the erays pipeline did not launch B1")
+        files = sorted(os.listdir(tmp))
+        nc = os.path.join(tmp, out["nc"])
+        ds, ref = shim.Dataset(nc), netcdf_file(nc, "r", mmap=False)
+        try:
+            for name, var in ref.variables.items():
+                want = np.asarray(var[:] if var.shape else var.getValue())
+                require(np.array_equal(np.asarray(ds.variables[name]), want),
+                        f"the shim reads {name} otherwise than scipy")
+            n_vars = len(ref.variables)
+        finally:
+            ds.close()
+            ref.close()
+        mod, nml = doc_modules.write_docs(os.path.join(tmp, "docs"))
+        with open(mod) as f:
+            text = f.read()
+        require("\n## rays_tpu_torch/entry.py\n" in text and os.path.getsize(nml) > 0,
+                "write_docs wrote no module section or no namelist file")
+    res = out["results"]
+    print(f"phase 22 erays pipeline, damped slab on {run.dev} ({launches} B1 launch): "
+          f"{wall:.2f} s (trace {out['wall'] * 1e3:.1f} ms), npoints {res.npoints.tolist()}, "
+          f"post-processing {sorted(out['post'])}; {len(files)} files {files}; "
+          f"{out['nc']} read back through the netCDF4 shim equal to scipy ({n_vars} "
+          f"variables); write_docs wrote {os.path.basename(mod)} and {os.path.basename(nml)}")
+    run.paths.append({"name": "erays_pipeline", "ms": wall * 1e3, "launches": launches})
+
+
+def split_phase(run):
+    """Phase 23: a world of one process over NCCL on the card: the split
+    trace of the damped batch and its all_reduced deposition profile
+    against trace_rays and calculate_deposition_profile."""
+    import torch.distributed as dist
+
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.core.types import tree_to
+    from rays_tpu_torch.parallel import multihost, sharded
+    from rays_tpu_torch.post import deposition
+    from rays_tpu_torch.tracing import fused_slab
+    from rays_tpu_torch.tracing.trace import trace_rays
+
+    dev = run.dev
+    cfg, params, v0, st0, pwr = examples.setup_example(examples.SLAB_ECH_DAMPED, device="cpu")
+    vg, sg, wg = examples.replicate_rays(v0, st0, pwr, N_RAYS)    # the launch grid, on the host
+    xmin, xmax = float(params.eq.xmin), float(params.eq.xmax)
+    params = tree_to(params, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        rank, world = multihost.initialize(init_method="file://" + os.path.join(tmp, "rdv"),
+                                           num_processes=1, process_id=0, device=dev.type)
+        try:
+            backend = dist.get_backend()
+            require((rank, world) == (0, 1) and backend == ("nccl" if dev.type == "cuda"
+                                                            else "gloo"),
+                    f"world {(rank, world)} over {backend}")
+            mesh = multihost.global_ray_mesh()
+            lo, hi = multihost.local_ray_slice(N_RAYS)
+            lv, ls, lw = multihost.distribute_rays(mesh, vg[lo:hi], sg[lo:hi], wg[lo:hi],
+                                                   device=dev.type)
+            tracer = multihost.make_multihost_tracer(cfg, mesh)
+            fused_slab.LAUNCHES = 0
+            t_trace, res = timed(lambda: tracer(params, lv, ls, lw))
+            launches = fused_slab.LAUNCHES
+            require(launches >= 1, "the split trace did not launch B1")
+            t_prof, prof = timed(lambda: deposition.calculate_deposition_profile(
+                cfg, params, res, "Ptotal_x", n_bins=N_BINS, xmin=xmin, xmax=xmax).profile)
+            t_red, prof_g = timed(lambda: sharded.all_reduce_sum(prof.clone(), mesh))
+        finally:
+            dist.destroy_process_group()
+    whole = trace_rays(cfg, params, vg.to(dev), sg.to(dev), wg.to(dev))
+    prof0 = deposition.calculate_deposition_profile(cfg, params, whole, "Ptotal_x",
+                                                    n_bins=N_BINS, xmin=xmin, xmax=xmax).profile
+    for got, ref, what in ((res.ray_vec, whole.ray_vec[lo:hi], "ray_vec"),
+                           (prof_g, prof0, "profile")):
+        err = float((got - ref).abs().max())
+        require(bool(torch.allclose(got, ref, rtol=SPLIT_RTOL, atol=SPLIT_ATOL)),
+                f"split {what} differs from the whole run's by {err:.3e}")
+    require(torch.equal(res.npoints, whole.npoints[lo:hi]), "split npoints differ")
+    print(f"phase 23 world of 1 over {backend} on {dev}: rays {lo}:{hi} of {N_RAYS} damped, "
+          f"trace with trajectories {t_trace:.1f} ms ({launches} B1 launch), Ptotal_x "
+          f"{t_prof:.1f} ms, all_reduce {t_red:.3f} ms; ray_vec and the reduced profile equal "
+          f"trace_rays + calculate_deposition_profile (rtol {SPLIT_RTOL}, atol {SPLIT_ATOL}; "
+          f"max diff {float((prof_g - prof0).abs().max()):.3e}), deposition "
+          f"{float(prof_g.sum()):.6f}")
+    run.paths.append({"name": "split_world_1", "ms": t_trace + t_prof + t_red,
+                      "launches": launches})
+
+
+def compensated_phase(run):
+    """Phase 24: the compensated carry, f32 slab at N_RAYS x COMP_STEPS
+    through the plain route, against the same run without the carry."""
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.tracing import fused_slab
+    from rays_tpu_torch.tracing.trace import route, trace_batch, trace_rays
+
+    dev = run.dev
+    cfg, params, v0, st0, pwr = examples.setup_example(device=dev, dtype=torch.float32)
+    plain_cfg = dataclasses.replace(cfg, nstep_max=COMP_STEPS, save_trajectory=False)
+    comp_cfg = dataclasses.replace(plain_cfg, compensated_sum=True)
+    require(route(comp_cfg, False, dev) == "plain" and not fused_slab.supported(comp_cfg),
+            "a compensated run must take the plain route")
+    vb, sb, wb = examples.replicate_rays(v0, st0, pwr, N_RAYS)
+    before = fused_slab.LAUNCHES
+    for c in (plain_cfg, comp_cfg):     # warm-up of both
+        trace_batch(dataclasses.replace(c, nstep_max=3), params, vb, sb, wb)
+    t_plain, plain = timed(lambda: trace_batch(plain_cfg, params, vb, sb, wb))
+    t_comp, comp = timed(lambda: trace_rays(comp_cfg, params, vb, sb, wb))
+    require(fused_slab.LAUNCHES == before, "the compensated run launched B1")
+    require(torch.equal(comp.end_ray_vec, plain.end_ray_vec)
+            and torch.equal(comp.npoints, plain.npoints),
+            "the compensated state is not bit-equal to the plain run's")
+    c = comp.end_ray_comp.double()
+    scale = comp.end_ray_vec.double().abs().amax(dim=0) + 1e-300
+    ratio = float((c.abs().amax(dim=0) / scale).max())
+    require(bool(torch.isfinite(c).all()) and float(c.abs().max()) > 0
+            and ratio < COMP_STEPS * COMP_ULP, f"carry: ratio {ratio:.3e}")
+    print(f"phase 24 compensated carry, f32 slab {N_RAYS} rays x {COMP_STEPS} steps on {dev} "
+          f"(plain route): state and npoints bit-equal to the run without it; carry finite, "
+          f"nonzero, at most {ratio:.3e} of scale (bound {COMP_STEPS * COMP_ULP:.1e}); "
+          f"{t_comp:.1f} ms with the carry, {t_plain:.1f} ms without")
+    run.paths.append({"name": "compensated_f32", "ms": t_comp, "plain_ms": t_plain})
+
+
+def inverse_phase(run, steps):
+    """Phase 24: the inverse demo at its starting point on the card
+    against the CPU, and a few of its iterations timed, at ``steps`` of
+    its INVERSE_STEPS RK4 steps."""
+    inv = _tool("inverse_demo")
+    dev = run.dev
+    t0 = time.perf_counter()
+    card = inv.start_point(nstep_max=steps, device=str(dev))
+    t_start = time.perf_counter() - t0
+    host = inv.InverseProblem(steps, "cpu")
+    loss_h, grad_h = host.value_and_grad(host.start)
+    loss_err = abs(float(card["loss"]) - float(loss_h)) / abs(float(loss_h))
+    grad_err = float((card["grad"].cpu() - grad_h).abs().max() / grad_h.abs().max())
+    require(loss_err <= INVERSE_RTOL and grad_err <= INVERSE_RTOL,
+            f"inverse demo start, card vs CPU: loss {loss_err:.3e}, gradient {grad_err:.3e}")
+    require(bool(torch.isfinite(card["j0"]).all() and torch.isfinite(card["j1"]).all()),
+            "non-finite Jacobian columns")
+    lines = []
+    t0 = time.perf_counter()
+    out = inv.run_demo(n_iters=INVERSE_ITERS, nstep_max=steps, n_newton=0,
+                       log=lines.append, device=str(dev))
+    t_demo = time.perf_counter() - t0
+    require(all(np.isfinite(h[0]) for h in out["history"]), "non-finite demo loss")
+    cut = (f" (cut from {INVERSE_STEPS} to fit the default run; --group tools runs all)"
+           if steps < INVERSE_STEPS else "")
+    print(f"phase 24 inverse demo ({card['target'].shape[0]} rays x {steps} RK4 steps{cut}) "
+          f"at its start on {dev}: loss {float(card['loss']):.12e}, gradient "
+          f"{card['grad'].tolist()}, equal to the CPU's within {loss_err:.3e} and "
+          f"{grad_err:.3e} of scale (bound {INVERSE_RTOL}); loss, gradient and the two "
+          f"forward-mode columns {t_start:.2f} s; {INVERSE_ITERS} Adam iterations "
+          f"{t_demo:.2f} s (losses {[f'{h[0]:.3e}' for h in out['history']]})")
+    run.paths.append({"name": "inverse_demo", "ms": t_demo * 1e3, "start_ms": t_start * 1e3,
+                      "steps": steps, "iterations": INVERSE_ITERS})
+
+
 def _write(path, text):
     with open(path, "w") as f:
         f.write(text)
@@ -1502,6 +1898,9 @@ def main(argv=None):
         post_main_path_phase(run)
         post_spline_phase(run)
         post_cli_phase(run)
+    if "tools" in groups:
+        tools_phases(run, kernels["fill"] if kernels else None,
+                     INVERSE_STEPS_DEFAULT if every else INVERSE_STEPS)
 
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"paths": run.paths}))

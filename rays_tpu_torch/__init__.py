@@ -14,5 +14,4 @@ the kernel does not cover instead of running them elsewhere.
 """
 
 from rays_tpu_torch import constants  # noqa: F401
-
-__version__ = "0.1.0"
+from rays_tpu_torch.version import __version__  # noqa: F401

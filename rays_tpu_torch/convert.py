@@ -90,18 +90,20 @@ def config_from_dict(d):
 def results_from_numpy(tree, device="cpu", dtype=torch.float64):
     """JAX ``RayResults`` of numpy leaves -> the port's ``RayResults`` on
     ``device``: floating fields in ``dtype``, ``npoints`` and
-    ``stop_flag`` as int32.  The JAX-only ``end_ray_comp`` (the
-    compensated sum, which the port does not have) must be ``None``."""
+    ``stop_flag`` as int32, ``end_ray_comp`` (the compensated carry)
+    ``None`` where the JAX run had none."""
     from rays_tpu_torch.tracing.trace import RayResults
 
     if type(tree).__name__ != "RayResults":
         raise ValueError(f"expected a RayResults, got {type(tree).__name__}")
-    extra = set(tree._fields) - set(RayResults._fields)
-    if extra - {"end_ray_comp"} or getattr(tree, "end_ray_comp", None) is not None:
-        raise ValueError(f"RayResults fields {sorted(extra)} have no counterpart in the port")
+    if tuple(tree._fields) != tuple(RayResults._fields):
+        raise ValueError(f"RayResults fields {tree._fields} != {RayResults._fields}")
 
     def leaf(name):
-        a = np.asarray(getattr(tree, name))
+        a = getattr(tree, name)
+        if a is None:
+            return None
+        a = np.asarray(a)
         if name in ("npoints", "stop_flag"):
             return torch.from_numpy(a.astype(np.int32)).to(device)
         return torch.from_numpy(a.astype(np.float64)).to(device=device, dtype=dtype)

@@ -125,8 +125,8 @@ class Config:
     max_substeps: int = 512
     sg_scan_substeps: int = 0
     remat_steps: bool = True
-    # the JAX package's compensated (Neumaier) carry; not ported
-    # (ROADMAP A18) and refused here
+    # the compensated (Neumaier) carry of the state, float32 runs'
+    # accumulation mode (tracing/compensated.py; RayResults.end_ray_comp)
     compensated_sum: bool = False
 
     # ray initialization
@@ -139,12 +139,6 @@ class Config:
     write_formatted_ray_files: bool = False
     write_results_list_directed: bool = False
     write_results_netcdf: bool = False
-
-    def __post_init__(self):
-        if self.compensated_sum:
-            raise ValueError(
-                "compensated_sum=True is not supported by rays_tpu_torch "
-                "(ROADMAP A18: it is not ported)")
 
     @property
     def ns(self) -> int:

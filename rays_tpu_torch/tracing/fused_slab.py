@@ -76,8 +76,10 @@ def supported(cfg) -> bool:
     profile models of the Pallas kernel, cold dispersion without gradient
     diagnostics, fixed-step RK4, at most 6 species.  Unlike the Pallas
     kernel it also writes trajectories (``save_trajectory``) and runs
-    ``damp_fund_ECH`` damping, with or without the per-species slots."""
-    if cfg.equilib_model != "slab":
+    ``damp_fund_ECH`` damping, with or without the per-species slots.
+    It has no compensated carry: a ``compensated_sum`` run takes the plain
+    tracer, which keeps it."""
+    if cfg.equilib_model != "slab" or cfg.compensated_sum:
         return False
     if cfg.damping_model not in ("no_damp", "damp_fund_ECH"):
         return False

@@ -29,6 +29,14 @@ def rk4_step_carried(cfg, params, s, v, f1, st1):
     """RK4 step with the first stage (f1, st1) = eqn_ray(s, v) supplied by
     the caller, which carries it from the previous step's endpoint
     evaluation (4 equilibrium evaluations per step, not 5)."""
+    dv, status = rk4_step_carried_delta(cfg, params, s, v, f1, st1)
+    return v + dv, status
+
+
+def rk4_step_carried_delta(cfg, params, s, v, f1, st1):
+    """Increment form of ``rk4_step_carried``: (dv, status) with v_new =
+    v + dv.  The compensated tracer (``cfg.compensated_sum``) TwoSums the
+    raw increment into the carried state."""
     ds = params.ode.ds
 
     def f(ss, vv):
@@ -38,4 +46,4 @@ def rk4_step_carried(cfg, params, s, v, f1, st1):
     f3, st3 = f(s + ds / 2.0, v + ds * f2 / 2.0)
     f4, st4 = f(s + ds, v + ds * f3)
     status = _first_nonzero(st1, st2, st3, st4)
-    return v + ds * (f1 + 2.0 * f2 + 2.0 * f3 + f4) / 6.0, status
+    return ds * (f1 + 2.0 * f2 + 2.0 * f3 + f4) / 6.0, status

@@ -24,6 +24,7 @@ import torch
 from rays_tpu_torch import constants
 from rays_tpu_torch.core.types import needs_grad
 from rays_tpu_torch.tracing import rhs as rhs_mod
+from rays_tpu_torch.tracing.compensated import two_sum_add
 from rays_tpu_torch.tracing.stop import StopCode
 
 # Dormand-Prince 5(4) tableau
@@ -123,7 +124,7 @@ def rk45_step_carried(cfg, params, s, v, h0, f1, st1):
     return rk45_step_carried_full(cfg, params, s, v, h0, f1, st1)[:3]
 
 
-def rk45_step_carried_full(cfg, params, s, v, h0, f1, st1, active=None):
+def rk45_step_carried_full(cfg, params, s, v, h0, f1, st1, active=None, c0=None):
     """Advance one outer step ds adaptively, with (f1, st1) = eqn_ray(s, v)
     supplied by the caller (the tracer carries it from the previous step's
     endpoint stage).  s: scalar; v, f1: (B, nv); h0, st1: (B,).  Returns
@@ -141,8 +142,12 @@ def rk45_step_carried_full(cfg, params, s, v, h0, f1, st1, active=None):
 
     ``cfg.sg_scan_substeps > 0`` replaces the loop by that fixed number of
     masked substeps, unrolled: the form that differentiates.  Asking for
-    gradients with ``sg_scan_substeps == 0`` raises.  The JAX package's
-    compensated carry (``c0``) is not ported (ROADMAP A18).
+    gradients with ``sg_scan_substeps == 0`` raises.
+
+    ``c0`` (B, nv), optional, is the compensated-summation carry: when it
+    is given, each accepted substep's increment is TwoSummed into (v, c)
+    and the returned tuple gains a trailing c_new (``cfg.compensated_sum``).
+    Like the rest of the carry it changes only where a ray takes a substep.
 
     ``active`` (B,) bool, optional: rays outside it take no substep and
     what is returned for them means nothing.  The tracer passes the rays
@@ -168,20 +173,23 @@ def rk45_step_carried_full(cfg, params, s, v, h0, f1, st1, active=None):
     total_error = torch.full((B,), int(StopCode.ODE_TOTAL_ERROR), dtype=torch.int32,
                              device=dev)
 
+    comp = c0 is not None
+
     def cond(carry):
         t, status, n_sub = carry[0], carry[-2], carry[-1]
         live = (sout - t > done_tol) & (status == 0) & (n_sub < cfg.max_substeps)
         return live if active is None else live & active
 
     def body(carry, live):
-        t, vv, h, k1, k1_st, resid, chk, status, n_sub = carry
+        t, vv, h, k1, k1_st, resid, chk = carry[:7]
+        status, n_sub = carry[-2:]
         # Step sizes are non-differentiated control state: the adjoint of
         # an adaptive integrator is the discrete adjoint of the frozen
         # accepted-substep sequence.  detach() cuts the whole controller
         # chain (err -> err_ratio -> factor -> h) out of the backward
         # pass; the primal values are unchanged.
         h_try = torch.minimum(h, sout - t).detach()
-        v5, _, err, rhs_status, k7, k7_st, resid5, chk5 = _dopri_step(
+        v5, dv5, err, rhs_status, k7, k7_st, resid5, chk5 = _dopri_step(
             f, f_check, t, vv, h_try, k1, k1_st)
 
         tol = ab + rel * torch.maximum(vv.abs(), v5.abs())
@@ -193,6 +201,9 @@ def rk45_step_carried_full(cfg, params, s, v, h0, f1, st1, active=None):
         acc = accept[:, None]
         t_new = torch.where(accept, t + h_try, t)
         v_new = torch.where(acc, v5, vv)
+        if comp:
+            # the TwoSum's primary sum is v5 itself, bit for bit
+            cc_new = torch.where(acc, two_sum_add(vv, carry[7], dv5)[1], carry[7])
         k1_new = torch.where(acc, k7, k1)
         k1_st_new = torch.where(accept, k7_st, k1_st)
         resid_new = torch.where(accept, resid5, resid)
@@ -206,7 +217,7 @@ def rk45_step_carried_full(cfg, params, s, v, h0, f1, st1, active=None):
         status = torch.where((~accept) & (h_try <= h_min) & (status == 0),
                              total_error, status)
         return (t_new, v_new, h_new, k1_new, k1_st_new, resid_new, chk_new,
-                status, n_sub + 1)
+                *((cc_new,) if comp else ()), status, n_sub + 1)
 
     def masked(live, old, new):
         """Per ray: the new carry where its condition held, else the old."""
@@ -217,7 +228,7 @@ def rk45_step_carried_full(cfg, params, s, v, h0, f1, st1, active=None):
     t0 = torch.zeros((B,), dtype=dt, device=dev) + s
     h_start = torch.minimum(torch.maximum(h0, h_min), ds.abs())
     carry = (t0, v, h_start, f1, st1, torch.zeros((B,), dtype=dt, device=dev),
-             zero_i, zero_i, zero_i)
+             zero_i, *((c0,) if comp else ()), zero_i, zero_i)
     n_scan = int(cfg.sg_scan_substeps)
     if n_scan > 0:
         # a fixed budget of masked substeps, unrolled; the check after the
@@ -243,7 +254,8 @@ def rk45_step_carried_full(cfg, params, s, v, h0, f1, st1, active=None):
             carry = masked(live, carry, body(carry, live))
             if stats is not None:
                 stats.loops += 1
-    t_f, v_f, h_f, k_f, k_st_f, resid_f, chk_f, status, _ = carry
+    t_f, v_f, h_f, k_f, k_st_f, resid_f, chk_f = carry[:7]
+    status = carry[-2]
     # substep budget exhausted without reaching sout: tolerance failure
     status = torch.where((status == 0) & (sout - t_f > done_tol), total_error, status)
-    return v_f, status, h_f, k_f, k_st_f, resid_f, chk_f
+    return (v_f, status, h_f, k_f, k_st_f, resid_f, chk_f, *((carry[7],) if comp else ()))

@@ -30,7 +30,7 @@ import torch.utils.checkpoint
 from rays_tpu_torch.core.types import needs_grad
 from rays_tpu_torch.models import base
 from rays_tpu_torch.tracing import rhs as rhs_mod
-from rays_tpu_torch.tracing import rk4, rk45
+from rays_tpu_torch.tracing import compensated, rk4, rk45
 from rays_tpu_torch.tracing.stop import StopCode
 
 
@@ -47,6 +47,11 @@ class RayResults(NamedTuple):
     end_ray_parameter: Any  # (B,)
     start_ray_vec: Any      # (B, nv)
     end_ray_vec: Any        # (B, nv)
+    # the compensated-summation residual of end_ray_vec under
+    # cfg.compensated_sum (the accumulated state is end_ray_vec +
+    # end_ray_comp, summed in float64 by compensated.resolved); None when
+    # the mode is off
+    end_ray_comp: Any = None
 
 
 def get_step_fn(cfg):
@@ -121,9 +126,15 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
     step's first stage (rhs.eqn_ray_and_check), so an RK4 outer step pays 4
     equilibrium evaluations.  Under ``SG_ODE`` the adaptive stepper's FSAL
     7th stage is that endpoint evaluation, and each ray carries its
-    converged step size ``hstate`` from one outer step to the next."""
+    converged step size ``hstate`` from one outer step to the next.
+
+    Under ``cfg.compensated_sum`` every accepted increment is TwoSummed
+    into the state (tracing/compensated.py): the state is bit for bit the
+    plain run's, and the rounding errors gather in a carried vector that
+    ends as ``end_ray_comp``."""
     check_supported(cfg)
     sg = cfg.ode_solver_name == "SG_ODE"
+    comp = cfg.compensated_sum
     ds, s_max = params.ode.ds, params.ode.s_max
     B, nv = v0.shape
     dev, dt = v0.device, v0.dtype
@@ -140,7 +151,7 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
     max_res = torch.zeros((B,), dtype=dt, device=dev)
     sout_gt = torch.full_like(status, int(StopCode.SOUT_GT_SMAX))
 
-    def step(k, v, f1, st1, hstate, status, nstep, end_res, max_res):
+    def step(k, v, f1, st1, hstate, status, nstep, end_res, max_res, cvec=None):
         s = k * ds
         sout = (k + 1) * ds
 
@@ -149,11 +160,16 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
         active = status == 0
 
         if sg:
-            (v_new, solver_st, h_new, f_new, rhs_st_new, resid,
-             check_st) = rk45.rk45_step_carried_full(cfg, params, s, v, hstate, f1, st1,
-                                                     active)
+            out = rk45.rk45_step_carried_full(cfg, params, s, v, hstate, f1, st1,
+                                              active, cvec)
+            v_new, solver_st, h_new, f_new, rhs_st_new, resid, check_st = out[:7]
+            c_new = out[-1]     # the carry, when cvec was given
         else:
-            v_new, solver_st = rk4.rk4_step_carried(cfg, params, s, v, f1, st1)
+            if comp:
+                dv, solver_st = rk4.rk4_step_carried_delta(cfg, params, s, v, f1, st1)
+                v_new, c_new = compensated.two_sum_add(v, cvec, dv)
+            else:
+                v_new, solver_st = rk4.rk4_step_carried(cfg, params, s, v, f1, st1)
             f_new, rhs_st_new, resid, check_st = rhs_mod.eqn_ray_and_check(
                 cfg, params, sout, v_new)
         status = torch.where(active & (solver_st != 0), solver_st, status)
@@ -162,6 +178,8 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
         ok = accepted & (check_st == 0)
 
         okc = ok[:, None]
+        if comp:
+            cvec = torch.where(okc, c_new, cvec)
         v = torch.where(okc, v_new, v)
         # the endpoint RHS becomes the next step's k1; a frozen ray keeps
         # the stage matching its frozen state
@@ -175,13 +193,15 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
         max_res = torch.where(ok, torch.maximum(max_res, resid), max_res)
         row = torch.where(okc, v, 0.0)
         res_row = torch.where(ok, resid, 0.0)
-        return v, f1, st1, hstate, status, nstep, end_res, max_res, row, res_row
+        return (row, res_row, v, f1, st1, hstate, status, nstep, end_res, max_res,
+                *((cvec,) if comp else ()))
 
     # the analog of jax.checkpoint(body) (JAX trace.py:233-238): the
     # backward pass keeps each step's inputs and recomputes its insides
     remat = cfg.remat_steps and needs_grad(params, v0)
     hstate = torch.zeros((B,), dtype=dt, device=dev) + ds
-    carry = (v0, f1, st1, hstate, status, nstep, end_res, max_res)
+    carry = (v0, f1, st1, hstate, status, nstep, end_res, max_res,
+             *((torch.zeros_like(v0),) if comp else ()))
     # trajectory rows are stacked once at the end: writing them into a
     # preallocated buffer would chain one whole-buffer copy per step into
     # the backward pass
@@ -192,11 +212,11 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
                 functools.partial(step, k), *carry, use_reentrant=False)
         else:
             out = step(k, *carry)
-        carry = out[:8]
+        carry = out[2:]
         if cfg.save_trajectory:
-            rows.append(out[8])
-            res_rows.append(out[9])
-    v, _, _, _, status, nstep, end_res, max_res = carry
+            rows.append(out[0])
+            res_rows.append(out[1])
+    v, _, _, _, status, nstep, end_res, max_res = carry[:8]
 
     # still-live rays exhausted the step budget (ray_tracing.f90:150-172)
     status = torch.where(status == 0, torch.full_like(status, int(StopCode.NSTEP_MAX)),
@@ -219,4 +239,5 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
         end_ray_parameter=v[:, 6],
         start_ray_vec=v0,
         end_ray_vec=v,
+        end_ray_comp=carry[8] if comp else None,
     )

@@ -101,8 +101,17 @@ def test_float32_params_round_once_from_float64():
 
 
 def test_compensated_sum_rejected():
-    with pytest.raises(ValueError, match="A18"):
-        Config(compensated_sum=True)
+    """The compensated carry is ported (tests/test_torch_compensated.py):
+    the Config takes it, and the one place that rejects it is the slab
+    RK4 kernel's gate, which has no carry, so such a run takes the plain
+    tracer."""
+    from rays_tpu_torch.tracing import fused_slab
+
+    cfg, _ = tschema.from_namelist(tparse(jex.SLAB_ECH_90GHZ))
+    assert fused_slab.supported(cfg)
+    comp = dataclasses.replace(cfg, compensated_sum=True)
+    assert comp.compensated_sum and Config(compensated_sum=True).compensated_sum
+    assert not fused_slab.supported(comp)
 
 
 def test_unported_models_raise():

@@ -62,7 +62,8 @@ def test_cpu_wrapper_runs_plain_twin():
     got = tfused.trace_batch_fused(pcfg, pp, tv0, tst, tpw)
     assert tfused.LAUNCHES == before == 0
     ref = ttrace.trace_batch(pcfg, pp, tv0, tst, tpw)
-    for a, b in zip(got, ref):
+    assert got.end_ray_comp is None and ref.end_ray_comp is None   # no compensated carry
+    for a, b in zip(got[:-1], ref[:-1]):
         assert torch.equal(a, b)
 
 

@@ -37,6 +37,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "rays_tpu_torch.post.process, rays_tpu_torch.post.toroid_processor, "
     "rays_tpu_torch.post.ox_conversion, rays_tpu_torch.post.mirror_processor, "
     "rays_tpu_torch.post.grid",
+    "rays_tpu_torch.compat.netCDF4, rays_tpu_torch.version, rays_tpu_torch.utils.ray_scan, "
+    "rays_tpu_torch.utils.erays, rays_tpu_torch.utils.doc_modules, "
+    "rays_tpu_torch.tracing.compensated, rays_tpu_torch.parallel.sharded, "
+    "rays_tpu_torch.parallel.multihost, rays_tpu_torch.entry",
 ])
 def test_import_pulls_in_no_jax(modules):
     code = (f"import sys, {modules}\n"
@@ -47,6 +51,25 @@ def test_import_pulls_in_no_jax(modules):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("tool", ["run_ds_scan", "run_batch_scan", "validate_all",
+                                  "inverse_demo"])
+def test_tools_pull_in_no_jax(tool):
+    """The port's tools, imported as modules by their paths, load neither
+    JAX nor the JAX package."""
+    code = ("import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location('t', 'tools/{tool}.py')\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(mod)\n"
+            "assert callable(mod.main)\n"
+            "bad = sorted(m for m in sys.modules if m.startswith('jax')"
+            " or m == 'rays_tpu' or m.startswith('rays_tpu.'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
