@@ -11,7 +11,8 @@ raises and the script exits non-zero.
     python3 chip_smoke.py                 # every group, from the root of a checkout
     python3 chip_smoke.py --group adjoint # one group alone, at its full depth
 
-The phases come in six groups (phase 1, the device, runs in every call):
+The phases come in seven groups (phase 1, the device and the build of
+every kernel library, runs in every call):
 
 * kernel, phases 2-8: the build; the undamped slab ECH 90 GHz main path
   (32,768 rays x 500 steps, f64 and f32, timed against the plain twin and
@@ -60,10 +61,28 @@ The phases come in six groups (phase 1, the device, runs in every call):
   The batch and RK4 ds scans run alone on the card; the SG ladder,
   validate_all and the dry run then run as processes of their own beside
   phases 22-24.
+* profile, phases 25-28: the measurement tools.  25 tools/step_profile.py
+  (B1's operations per ray step; the op census of one outer step of the
+  slab RK4, slab SG, Solovev SG, EQDSK and mirror paths beside the CUDA
+  kernels, device time and busy share that torch.profiler sees; B1's
+  device time at 256 and 32,768 rays; trace_rays' fixed cost per call);
+  26 tools/op_roofline.py (the op-rate kernels of csrc/op_rates.cu, each
+  held to its plain chain at the full depth and one iteration short, and
+  B1 priced at their rates beside the published-peak bound); 27
+  tools/precision_probe.py (where the f32 end error comes from, the plain
+  tracer and B1, on the example and on 32,768 rays); 28
+  tools/profile_mirror.py (the mirror's evaluation split into its pieces,
+  host against device, and each piece in a loop).  Each writes its
+  report under build/.  The default call cuts the profiled windows to
+  PROFILE_STEPS_DEFAULT steps, the probe to PROBE_STEPS_DEFAULT steps and
+  the mirror to
+  MIRROR_STEPS_DEFAULT steps and MIRROR_LOOP_ITERS_DEFAULT iterations, and
+  says so in their lines.
 
 The last lines are the total wall time, a JSON line of the times of the
-paths without a kernel, a JSON summary of the kernels (when the kernel
-group ran) and {"ok": true, "device": {...}}.  Without a CUDA device it
+paths without a kernel, a JSON summary of the kernels (B1's two entries
+when the kernel group ran, the op-rate kernels' when the profile group
+ran) and {"ok": true, "device": {...}}.  Without a CUDA device it
 exits non-zero and prints no result.
 
 Beside each kernel time stands its bound, the least time the card could
@@ -127,25 +146,15 @@ TRAIN_STEPS_DEFAULT = 100   # ... in the default call, which runs every group
 SG_ADJOINT_STEPS = 100      # outer steps of the adaptive training step
 SG_ADJOINT_STEPS_DEFAULT = 50
 SG_FD_STEPS = 20        # outer steps of its finite-difference check
-GROUPS = ("kernel", "adjoint", "plain", "spline", "post", "tools")
+GROUPS = ("kernel", "adjoint", "plain", "spline", "post", "tools", "profile")
 # post-processing (phases 17-19): the rays the CPU recomputes, and the
 # tolerances of tests/test_torch_post_*.py for the card against the CPU
 N_HOST_CHECK = 64
 POST_TOL = 1e-12            # of each variable's scale
 N_IMAG_TOL = 1e-10          # n_imag: the Z function and the group velocity
 N_DEP_BINS = 50             # post_process's default
-# NVIDIA's H100 SXM data sheet: memory rate, and FP64 / FP32 rates outside
-# the tensor cores (an FMA is two operations)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
-# special-function unit: 16 results per clock per SM, 132 SMs at 1.98 GHz;
-# the float32 exponential is one such instruction (float64 has no unit)
-SFU_PER_S = 16 * 132 * 1.98e9
-# floating-point instructions among the 60 that nvcc emits for one
-# exp(double) on sm_90a (tools/slab_rk4_probe.py sass): the bound with an
-# exponential at that cost is printed beside the one that counts it as a
-# single operation
-EXP_F64_INSTRUCTIONS = 20
+# the card's published rates (memory, FP64 and FP32 outside the tensor
+# cores) and the kernel's bound are in rays_tpu_torch/utils/op_rates.py
 
 
 def fail(msg):
@@ -199,41 +208,23 @@ def timed(fn):
     return start.elapsed_time(end), out
 
 
-def ops_per_example_ray(fused_slab, examples, text):
+def ops_per_example_ray(text):
     """[{kind: operations}] and [npoints] for each of the example's launch
     rays, counted on the CPU by the kernel body itself."""
-    cfg, params, v0, st0, _ = examples.setup_example(text, device="cpu", dtype=torch.float64)
-    lib = fused_slab.load_host_libraries()[fused_slab._variant(cfg)]
-    ops, npts = [], []
-    for i in range(v0.shape[0]):
-        o, n = fused_slab.count_ops(lib, cfg, params, v0[i:i + 1].contiguous(),
-                                    st0[i:i + 1].contiguous())
-        ops.append(o)
-        npts.append(int(n[0]))
-    return ops, npts
+    from rays_tpu_torch.utils import op_rates
+
+    return op_rates.example_ray_ops(text)
 
 
 def kernel_bound(ray_ops, n_rays, nv, dtype):
     """(bound ms, 'bytes' or 'operations', detail) of one launch on n_rays
-    rays that tile the example's launch rays (examples.replicate_rays).
-    Bytes: v0 and status0 read, the end state, two int32 and two residuals
-    per ray written.  Operations: every add, multiply, divide, square root,
-    exponential and power as one, at the published peak of the type; for
-    float32 also the exponentials at the special-function rate."""
-    reps = np.bincount(np.arange(n_rays) % len(ray_ops), minlength=len(ray_ops))
-    total = {k: int(sum(r * o[k] for r, o in zip(reps, ray_ops))) for k in ray_ops[0]}
-    flops = sum(total.values())
-    size = torch.finfo(dtype).bits // 8
-    n_bytes = n_rays * (2 * nv * size + 3 * 4 + 2 * size)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    if dtype == torch.float32:
-        t_ops = max(t_ops, total["exp"] / SFU_PER_S * 1e3)
-    detail = dict(total, flops=flops, bytes=n_bytes, ms_bytes=t_bytes, ms_ops=t_ops)
-    if dtype == torch.float64:
-        detail["ms_ops_exp_expanded"] = (
-            (flops + (EXP_F64_INSTRUCTIONS - 1) * total["exp"]) / PEAK_FLOPS[dtype] * 1e3)
-    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), detail
+    rays that tile the example's launch rays (examples.replicate_rays):
+    ``op_rates.published_bound``, every operation at the published peak of
+    its type."""
+    from rays_tpu_torch.utils import op_rates
+
+    return op_rates.published_bound(op_rates.replicated_totals(ray_ops, n_rays), n_rays,
+                                    nv, dtype)
 
 
 def time_kernel(fused_slab, cfg, params, v, st, w, reps=3):
@@ -394,6 +385,7 @@ def spline_geometry_phase(phase, name, write_example, card, dev, paths, extra_ch
     from rays_tpu_torch.tracing import fused_slab
     from rays_tpu_torch.tracing.stop import flag_string
     from rays_tpu_torch.tracing.trace import trace_rays
+    from rays_tpu_torch.utils import op_rates
 
     f64, f32 = torch.float64, torch.float32
     with tempfile.TemporaryDirectory() as tmp:
@@ -450,7 +442,7 @@ def spline_geometry_phase(phase, name, write_example, card, dev, paths, extra_ch
         print(f"phase {phase} {name} RK4 {tag} {N_RAYS} rays x {cfg_b.nstep_max} steps: {ms:.1f} ms "
               f"({N_RAYS / ms * 1e3:.0f} rays/s), {ms / n_eval:.3f} ms per evaluation "
               f"({n_eval} evaluations; one row of {row} B per ray and evaluation = "
-              f"{N_RAYS * row / HBM_BYTES_PER_S * 1e3:.5f} ms at the memory rate); peak memory "
+              f"{N_RAYS * row / op_rates.HBM_BYTES_PER_S * 1e3:.5f} ms at the memory rate); peak memory "
               f"{peak / 2**30:.3f} GiB; npoints {sorted(set(res.npoints.tolist()))[:6]} flags "
               f"{flag_counts(res)} max residual {float(res.max_residuals.max()):.3e} on {card}")
         paths.append({"name": f"{name.lower()}_rk4_{tag}", "ms": ms, "ms_per_evaluation": ms / n_eval,
@@ -657,13 +649,13 @@ def kernel_phases(run):
     from rays_tpu_torch.tracing import fused_slab
     from rays_tpu_torch.tracing.stop import StopCode, flag_string
     from rays_tpu_torch.tracing.trace import trace_rays
+    from rays_tpu_torch.utils import op_rates
 
     card = run.card
 
-    # phase 2: build the kernel libraries from the sources in the checkout
-    t0 = time.perf_counter()
+    # phase 2: the kernel libraries, built from the sources in the checkout
+    # at phase 1
     libs = fused_slab.load_libraries()
-    build_s = time.perf_counter() - t0
     # -Xptxas -v: registers and spill stores of each instantiation
     reports = []
     for variant, (_, log) in libs.items():
@@ -672,8 +664,13 @@ def kernel_phases(run):
                                       r"spill stores.*?Used (\d+) registers", log, re.S)]
         require(ptxas, f"no sm_90a ptxas report in the build log of variant {variant}:\n{log}")
         reports.append(f"variant {variant}: " + ", ".join(ptxas))
-    print(f"phase 2 build: slab_rk4 variants {sorted(libs)} for sm_90a in {build_s:.1f} s "
-          f"(built side by side); ptxas: " + "; ".join(reports))
+    print(f"phase 2 build: slab_rk4 variants {sorted(libs)} for sm_90a in {run.build_s:.1f} s "
+          f"(built side by side with op_rates); ptxas: " + "; ".join(reports))
+    regs = [(int(m.group(2)), int(m.group(1))) for m in re.finditer(
+        r"(\d+) bytes spill stores.*?Used (\d+) registers", op_rates.load_library()[1], re.S)]
+    require(regs, "no sm_90a ptxas report in the op_rates build log")
+    print(f"phase 2 build: op_rates, {len(regs)} kernel instantiations, at most "
+          f"{max(r for r, _ in regs)} registers, {max(b for _, b in regs)} B spilled")
     # what the runtime grants the instantiations that the phases below launch
     occupancy = {}
     for variant in (0, 2):
@@ -686,8 +683,8 @@ def kernel_phases(run):
                   f"x {occ['threads']} threads = {occ['warps_per_sm']} warps per SM")
     # the operations the two batches need, counted by the host build
     t0 = time.perf_counter()
-    ops_u, npts_u = ops_per_example_ray(fused_slab, examples, examples.SLAB_ECH_90GHZ)
-    ops_d, npts_d = ops_per_example_ray(fused_slab, examples, examples.SLAB_ECH_DAMPED)
+    ops_u, npts_u = ops_per_example_ray(examples.SLAB_ECH_90GHZ)
+    ops_d, npts_d = ops_per_example_ray(examples.SLAB_ECH_DAMPED)
     for name, ops, npts in (("slab_rk4", ops_u, npts_u), ("slab_rk4_damped", ops_d, npts_d)):
         steps = sum(npts) - len(npts)
         per_step = {k: round(sum(o[k] for o in ops) / steps, 2) for k in ops[0]}
@@ -755,7 +752,7 @@ def kernel_phases(run):
     # phase 5: timing, kernel / plain / kernel, per dtype
     def report_bound(phase, name, ray_ops, n_rays, nv, dt, t_kern):
         bound, by, d = kernel_bound(ray_ops, n_rays, nv, dt)
-        expanded = (f"; with exp at {EXP_F64_INSTRUCTIONS} operations "
+        expanded = (f"; with exp at {op_rates.EXP_F64_INSTRUCTIONS} operations "
                     f"{d['ms_ops_exp_expanded']:.4f} ms, share "
                     f"{d['ms_ops_exp_expanded'] / t_kern:.4f}"
                     if d.get("exp") and dt == f64 else "")
@@ -1217,6 +1214,7 @@ def post_main_path_phase(run):
     from rays_tpu_torch.tracing import fused_slab
     from rays_tpu_torch.tracing.stop import StopCode
     from rays_tpu_torch.tracing.trace import trace_rays
+    from rays_tpu_torch.utils import op_rates
 
     card, dev, paths, f64 = run.card, run.dev, run.paths, torch.float64
     cfg, params, v0, st0, pwr = examples.setup_example(
@@ -1260,7 +1258,7 @@ def post_main_path_phase(run):
     # npoints read once, every variable written once
     n_read = (res.ray_vec.numel() + res.residual.numel()) * 8 + res.npoints.numel() * 4
     n_written = sum(v.numel() * v.element_size() for v in diags.values())
-    floor = (n_read + n_written) / HBM_BYTES_PER_S * 1e3
+    floor = (n_read + n_written) / op_rates.HBM_BYTES_PER_S * 1e3
     paths[-4]["bound_ms"] = floor
     print(f"phase 17 damped B1 f64 {B} rays x {n_pts} points (trajectories on): trace "
           f"{t_trace:.1f} ms, {launches} launch; {absorbed} rays end with TOTAL_ABSORPTION; "
@@ -1827,6 +1825,174 @@ def inverse_phase(run, steps):
                       "steps": steps, "iterations": INVERSE_ITERS})
 
 
+# --- phases 25-28: the JAX repo's measurement scripts as tools on the card ---
+
+PROFILE_STEPS = 16              # outer steps of a profiled window (tools/step_profile.py)
+PROFILE_STEPS_DEFAULT = 4       # ... in the default call, which runs every group
+PROBE_STEPS_DEFAULT = 100       # RK4 steps of the precision probe (its depth: 500)
+MIRROR_STEPS = 500              # scripts/profile_mirror.py's depth
+MIRROR_STEPS_DEFAULT = 100
+MIRROR_LOOP_ITERS = 500         # the loops of scripts/profile_mirror2.py
+MIRROR_LOOP_ITERS_DEFAULT = 100
+# what each op-rate kernel stands for in scripts/vpu_roofline.py
+VPU_ROOFLINE_CHAINS = "scripts/vpu_roofline.py:41"      # _chain, scanned by measure (:50)
+VPU_ROOFLINE_MATVEC = "scripts/vpu_roofline.py:104"     # dot_body, the tiny dot_general
+
+
+def _cut(full, depth, default, what):
+    """(depth, the text that states the cut) of a profile phase."""
+    if full:
+        return depth, ""
+    return default, f" ({what} cut from {depth} to {default} in the default call; --group profile runs all)"
+
+
+def profile_phases(run, full):
+    """Phases 25-28: tools/step_profile.py, op_roofline.py,
+    precision_probe.py and profile_mirror.py on the card.  Each writes its report under build/; the lines here condense
+    them.  ``full``: the depths of the tools (--group profile), else the
+    cut ones.  Returns the op-rate kernels' rows for the kernels line."""
+    from rays_tpu_torch.tracing import fused_slab
+    from rays_tpu_torch.utils import measure, op_rates
+
+    card, dev = run.card, run.dev
+    quiet = lambda msg: None  # noqa: E731
+
+    # phase 25: the step profile
+    steps, cut = _cut(full, PROFILE_STEPS, PROFILE_STEPS_DEFAULT, "profiled outer steps")
+    t0 = time.perf_counter()
+    fused_slab.LAUNCHES = 0
+    lines, rep = _tool("step_profile").run(dev.type, N_RAYS, steps, log=quiet)
+    b1_launches = fused_slab.LAUNCHES
+    path = measure.write_report(lines, os.path.join("build", "step_profile.txt"))
+    for name, per in rep["b1_ops"].items():
+        print(f"phase 25 B1 {name}: {sum(per.values()):.1f} operations per ray step "
+              f"({', '.join(f'{k} {v:.2f}' for k, v in per.items() if v)})")
+    for name, c in rep["census"].items():
+        w = rep["windows"][name]
+        require(c.n_ops > 0, f"{name}: an empty census")
+        if w["profiled"]:
+            prof = (f"{w['kernels']:.1f} CUDA kernels and {w['copies']:.1f} copies per outer "
+                    f"step, device {w['device_us'] / 1e3:.3f} of {w['wall_us'] / 1e3:.3f} ms per "
+                    f"step ({w['profiled_wall_us'] / 1e3:.3f} profiled), busy share "
+                    f"{w['busy_share']:.4f}, kernel median {w['quantiles'][1]:.2f} us")
+        else:
+            prof = (f"torch.profiler showed no device time; CUDA events "
+                    f"{w.get('events_ms', float('nan')):.3f} ms per outer step")
+        print(f"phase 25 {name} {N_RAYS} rays f64: census {c.n_ops} aten ops per outer step "
+              f"({c.host_reads} host reads); {prof}{cut}")
+    for n, b in rep["b1"].items():
+        require(b["launches"] == 1, f"B1 at {n} rays: {b}")
+        print(f"phase 25 B1 slab f64 x 500, {n} rays: kernel {b['kernel_ms']:.3f} ms of device "
+              f"time (CUDA events, wrapper hidden), {b['call_ms']:.3f} ms a call; the profiler "
+              f"saw {b['profiled_kernels']} kernels in the call, B1 "
+              f"{'among them' if b['profiled_b1'] else 'not among them'}")
+    for (n, tag), (one, five) in rep["calls"].items():
+        print(f"phase 25 trace_rays through B1, {n} rays {tag}: single call {one * 1e3:.3f} ms, "
+              f"5 back to back {five * 1e3:.3f} ms per call, fixed cost per call "
+              f"{(one - five) * 1e3:.3f} ms (host clock, best of 3)")
+    # B1 at two sizes (warm-up, profiled call, 3 timed calls, 5 hidden
+    # behind the spin) and trace_rays at four (warm-up, 3 single calls, 3
+    # bursts of 5)
+    require(b1_launches == 2 * 10 + 4 * 19, f"the step profile launched B1 {b1_launches} times")
+    print(f"phase 25 step profile in {time.perf_counter() - t0:.1f} s ({b1_launches} B1 "
+          f"launches); wrote {path} on {card}")
+    run.paths.append({"name": "step_profile", "steps": steps, "b1_launches": b1_launches,
+                      "aten_ops_per_step": {k: c.n_ops for k, c in rep["census"].items()},
+                      "kernels_per_step": {k: w["kernels"] for k, w in rep["windows"].items()},
+                      "busy_share": {k: w["busy_share"] for k, w in rep["windows"].items()}})
+
+    # phase 26: the op-class rates and B1 priced with them
+    t0 = time.perf_counter()
+    op_rates.LAUNCHES.clear()
+    opr = _tool("op_roofline")
+    lines, rep = opr.run(dev.type, log=quiet)
+    launches = dict(op_rates.LAUNCHES)
+    path = measure.write_report(lines, os.path.join("build", "op_roofline.txt"))
+    rows = rep["kernels"]
+    for r in rows:
+        require(launches.get(r["name"], 0) >= 1, f"{r['name']} was not launched")
+    for dt, rates in rep["rates"].items():
+        tag = "f32" if dt == torch.float32 else "f64"
+        print(f"phase 26 op-class rates {tag}, G ops/s: "
+              + ", ".join(f"{k} {v / 1e9:.1f}" for k, v in rates.items())
+              + "; ILP sweep of fma (W, K): " + ", ".join(
+                  f"({r['w']}, {r['k']}) {r['rate'] / 1e9:.1f}" for r in rows
+                  if r["dtype"] == dt and r["op"] == "fma"))
+    worst = max(rows, key=lambda r: r["max_rel_err"] / opr.REL_TOL[r["dtype"]])
+    coarse = min(rows, key=lambda r: r["resolution"] / max(r["max_rel_err"], 1e-300))
+    print(f"phase 26 {len(rows)} op-rate kernels equal their plain chains at the full depth "
+          f"and one iteration short (f64 within 1e-12, f32 within 1e-5 relative, each below "
+          f"its chain's resolution; worst {worst['name']} {worst['max_rel_err']:.2e}; "
+          f"closest to its resolution {coarse['name']} {coarse['max_rel_err']:.2e} of "
+          f"{coarse['resolution']:.2e})")
+    for r in rep["b1"]:
+        tag = "f32" if r["dtype"] == torch.float32 else "f64"
+        print(f"phase 26 B1 {r['name']} {tag} {r['rays']} rays: kernel {r['ms']:.3f} ms; "
+              f"op-priced estimate {r['op_ms']:.4f} ms (share {r['op_ms'] / r['ms']:.4f}); "
+              f"published-peak bound {r['published_ms']:.4f} ms (share "
+              f"{r['published_ms'] / r['ms']:.4f})")
+    c = rep["census"]
+    print(f"phase 26 plain slab RK4 step: {c['aten_ops']} aten ops, op-priced estimate "
+          f"{c['ns_per_ray_step']:.3f} ns per ray step at the f64 rates")
+    print(f"phase 26 op roofline in {time.perf_counter() - t0:.1f} s; wrote {path} on {card}")
+    kernels = [{
+        "name": r["name"], "route": "cuda", "source": "rays_tpu_torch/csrc/op_rates.cu",
+        "replaces": VPU_ROOFLINE_MATVEC if r["op"] == "matvec" else VPU_ROOFLINE_CHAINS,
+        "launches": launches.get(r["name"], 0), "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        # no single PyTorch call computes a dependent chain
+        "library_ms": None} for r in rows]
+
+    # phase 27: the precision probe
+    t0 = time.perf_counter()
+    probe = _tool("precision_probe")
+    psteps, cut = _cut(full, probe.N_STEPS, PROBE_STEPS_DEFAULT, "RK4 steps")
+    fused_slab.LAUNCHES = 0
+    lines, rep = probe.run(dev.type, steps=psteps, log=quiet)
+    require(fused_slab.LAUNCHES == 2, f"the probe launched B1 {fused_slab.LAUNCHES} times")
+    path = measure.write_report(lines, os.path.join("build", "precision_probe.txt"))
+    for key, what in (("example", f"slab example 3 rays x {psteps}"),
+                      ("replicated", f"{N_RAYS} rays x {psteps}")):
+        r = rep[key]
+        require(all(np.isfinite(v) for v in r.values()), f"probe {key}: {r}")
+        require(r["f32"] <= F32_RTOL and r["b1_f32"] <= F32_RTOL,
+                f"probe {key}: f32 end errors {r['f32']:.3e}, B1 {r['b1_f32']:.3e}")
+        print(f"phase 27 precision probe, {what} steps: amplification "
+              f"{r['amplification']:.2f}x; f32 end error plain {r['f32']:.3e}, compensated "
+              f"{r['f32_compensated']:.3e} (resolved {r['f32_compensated_resolved']:.3e}), "
+              f"deriv_cold in f64 {r['f32_deriv_cold_f64']:.3e}, equilibrium in f64 "
+              f"{r['f32_equilibrium_f64']:.3e}, both {r['f32_both_f64']:.3e}; B1 f32 "
+              f"{r['b1_f32']:.3e}{cut}")
+    print(f"phase 27 precision probe in {time.perf_counter() - t0:.1f} s; wrote {path} on {card}")
+
+    # phase 28: the mirror profile
+    t0 = time.perf_counter()
+    msteps, cut = _cut(full, MIRROR_STEPS, MIRROR_STEPS_DEFAULT, "steps")
+    iters, icut = _cut(full, MIRROR_LOOP_ITERS, MIRROR_LOOP_ITERS_DEFAULT, "iterations")
+    lines, rep, loops = _tool("profile_mirror").run(dev.type, steps=msteps, iters=iters,
+                                                    log=quiet)
+    path = measure.write_report(lines, os.path.join("build", "profile_mirror.txt"))
+    for tag, res in rep.items():
+        evals = 4 * msteps + 1
+        parts = ", ".join(f"{k} {m['ms']:.3f} ms (host {m['host_us'] / 1e3:.3f}, device "
+                          f"{m['device_us'] / 1e3:.3f}, {m['kernels']} kernels)"
+                          for k, m in res.items() if not k.startswith("trace"))
+        print(f"phase 28 mirror {tag} 8192 rays x {msteps} steps{cut}: trace "
+              f"{res['trace']['ms']:.1f} ms ({res['trace']['ms'] / evals:.3f} ms per "
+              f"evaluation), without damping {res['trace_no_damp']['ms']:.1f} ms; one of each "
+              f"on the batch: {parts}")
+    print(f"phase 28 mirror loops f32, {iters} iterations{icut}, ms per iteration net of the "
+          f"null loop: " + ", ".join(f"{k} {net:.4f}" for k, (_, net) in loops.items()))
+    print(f"phase 28 mirror profile in {time.perf_counter() - t0:.1f} s; wrote {path} on "
+          f"{card}")
+    run.paths.append({"name": "mirror_profile", "steps": msteps,
+                      "ms_per_eval": {t: r["trace"]["ms"] / (4 * msteps + 1)
+                                      for t, r in rep.items()},
+                      "eqn_ray_ms": {t: r["eqn_ray"]["ms"] for t, r in rep.items()},
+                      "eval_cell_2d_ms": {t: r["eval_cell_2d"]["ms"] for t, r in rep.items()}})
+    return kernels
+
+
 def _write(path, text):
     with open(path, "w") as f:
         f.write(text)
@@ -1844,12 +2010,27 @@ def spline_example_files(write_example, directory):
                                      f"nstep_max={SPLINE_EXAMPLE_STEPS}"))
 
 
+def build_kernels():
+    """Build (unless built) every kernel library of the checkout: the three
+    slab RK4 variants and the op-rate kernels, each source by its own nvcc,
+    all started together.  Returns the seconds it took."""
+    from rays_tpu_torch.tracing import fused_slab
+    from rays_tpu_torch.utils import op_rates
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(fused_slab.load_libraries), pool.submit(op_rates.load_library)]:
+            f.result()
+    return time.perf_counter() - t0
+
+
 class Run:
     """What every phase reads: the card's nvidia-smi line, the device, and
     the paths line being filled."""
 
     def __init__(self, card, dev):
         self.card, self.dev, self.paths = card, dev, []
+        self.build_s = None
 
 
 def main(argv=None):
@@ -1882,6 +2063,10 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     run = Run(card, torch.device("cuda", 0))
     every = args.group is None
+    # every kernel library of the checkout, one nvcc per source, side by side
+    run.build_s = build_kernels()
+    print(f"phase 1 build: slab_rk4 (3 variants) and op_rates for sm_90a in {run.build_s:.1f} s "
+          f"(side by side)")
 
     kernels = kernel_phases(run) if "kernel" in groups else None
     if "adjoint" in groups:
@@ -1901,11 +2086,13 @@ def main(argv=None):
     if "tools" in groups:
         tools_phases(run, kernels["fill"] if kernels else None,
                      INVERSE_STEPS_DEFAULT if every else INVERSE_STEPS)
+    op_kernels = profile_phases(run, not every) if "profile" in groups else []
 
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"paths": run.paths}))
+    b1 = []
     if kernels is not None:
-        print(json.dumps({"kernels": [{
+        b1 = [{
             "name": name,
             "route": "cuda",
             "source": "rays_tpu_torch/csrc/slab_rk4.cu",
@@ -1919,7 +2106,9 @@ def main(argv=None):
             # no single PyTorch call computes an RK4 trajectory
             "library_ms": None,
         } for name, (launches, err, (t_kern, t_plain), (bound, bound_by))
-            in ((k, kernels[k]) for k in ("slab_rk4", "slab_rk4_damped"))]}))
+            in ((k, kernels[k]) for k in ("slab_rk4", "slab_rk4_damped"))]
+    if b1 or op_kernels:
+        print(json.dumps({"kernels": b1 + op_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

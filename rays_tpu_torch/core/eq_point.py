@@ -72,3 +72,22 @@ def derive_eq_point(raw: RawEq, species, rf) -> EqPoint:
         ns=raw.ns, gradns=raw.gradns, ts=raw.ts, gradts=raw.gradts,
         omgc=omgc, omgp2=omgp2, alpha=alpha, gamma=gamma, err=raw.err,
     )
+
+
+def value_and_jacfwd(f, x):
+    """Values and jacobians of ``f`` at a batch of points x (B, 3) by
+    forward mode, one JVP per coordinate (``rays_tpu.core.eq_point``).
+
+    ``f`` maps x (B, 3) to a tuple of tensors (B, ...), each ray's values
+    depending on its own point only, so one tangent e_i on every row gives
+    every ray's d/dx_i at once.  Returns (values, jacobians) with
+    jac[b, ..., i] = d value[b, ...] / d x[b, i]: for a model's ``fields``,
+    jb[b, j, i] = dB_j/dx_i, jn[b, s, i] and jt[b, s, i]."""
+    columns = []
+    for i in range(x.shape[-1]):
+        tangent = torch.zeros_like(x)
+        tangent[:, i] = 1.0
+        y, dy = torch.func.jvp(f, (x,), (tangent,))
+        columns.append(dy)
+    jac = tuple(torch.stack(cols, dim=-1) for cols in zip(*columns))
+    return y, jac

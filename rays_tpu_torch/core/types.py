@@ -212,3 +212,10 @@ def needs_grad(params, *tensors) -> bool:
     return torch.is_grad_enabled() and (
         any(t.requires_grad for t in tensors)
         or any(leaf.requires_grad for leaf in tree_leaves(params)))
+
+
+def asarrays(tree, dtype=torch.float64, device="cpu"):
+    """Map a NamedTuple tree of python scalars, lists and tensors to
+    tensors of ``dtype`` on ``device`` (``rays_tpu.core.types.asarrays``,
+    with the device made explicit).  ``None`` entries stay ``None``."""
+    return tree_map(lambda x: torch.as_tensor(x, dtype=dtype, device=device), tree)

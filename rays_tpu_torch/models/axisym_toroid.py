@@ -408,6 +408,15 @@ def _geom_code(p, rvec, psiN):
     return code
 
 
+def supports_analytic_jac(static: AxisymToroidStatic, p: AxisymToroidParams) -> bool:
+    """True: ``fields_jac_geom`` covers every magnetics backend and profile
+    model that ``fields`` accepts (any other name raises there).  The hook
+    exists for parity with the JAX package, whose closed form covers only
+    the spline backend with a cell table and the analytic profiles
+    (rays_tpu/models/axisym_toroid.py:336)."""
+    return True
+
+
 def fields_jac_geom(static: AxisymToroidStatic, p: AxisymToroidParams, species, rvec):
     """``fields_and_jac`` and ``geom_err`` from one evaluation of the
     magnetics: ((bvec, ns, ts), (jb, jn, jt), code)."""

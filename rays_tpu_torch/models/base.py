@@ -10,11 +10,17 @@ A model module provides, on a batch of points x (B, 3):
 
 A model may also provide ``fields_jac_geom`` -> (values, jacobians,
 geometry code) from one evaluation of its magnetics; the spline geometries
-do, so that a ray step fetches each spline row once.
+do, so that a ray step fetches each spline row once.  A model whose
+closed forms cover only some of its options says which with
+``supports_analytic_jac(static, params)``.  A model with neither closed
+form, or outside them, gets its jacobians by forward mode through
+``fields`` (``core.eq_point.value_and_jacfwd``), as in the JAX package.
 
 All four models of the JAX package are here: the slab, the Solovev
 tokamak, the generic axisymmetric toroid (Solovev, EQDSK spline and EQDSK
-bilinear magnetics) and the multiple mirror.
+bilinear magnetics) and the multiple mirror.  A library user adds a model
+of their own with ``register_eq_model(name, module)``; the registry is
+looked up before the four built-in names.
 """
 
 from __future__ import annotations
@@ -22,11 +28,25 @@ from __future__ import annotations
 import torch
 
 from rays_tpu_torch import constants
-from rays_tpu_torch.core.eq_point import EqPoint, RawEq, derive_eq_point
+from rays_tpu_torch.core.eq_point import EqPoint, RawEq, derive_eq_point, value_and_jacfwd
 from rays_tpu_torch.tracing.stop import StopCode
+
+# models registered by name (``register_eq_model``); the four built-in
+# models are imported on first use by ``get_eq_model`` instead, which keeps
+# their modules out of an import cycle with this one
+EQ_MODELS: dict[str, object] = {}
+
+
+def register_eq_model(name: str, module) -> None:
+    """Make ``module`` the equilibrium model of ``equilib_model=name``.
+    It provides ``fields``, ``geom_err`` and ``err`` (module docstring)
+    and may provide the closed forms."""
+    EQ_MODELS[name] = module
 
 
 def get_eq_model(name: str):
+    if name in EQ_MODELS:
+        return EQ_MODELS[name]
     if name == "slab":
         from rays_tpu_torch.models import slab
 
@@ -86,16 +106,23 @@ def equilibrium(cfg, params, x) -> EqPoint:
     """Full equilibrium point with gradients (reference
     equilibrium_m.f90:135): one evaluation of the model's values and
     jacobians, validity from the geometry check and the positivity of the
-    same ns and ts."""
+    same ns and ts.  The jacobians come from the model's closed form where
+    it has one that covers this config, else by forward mode through its
+    ``fields`` (rays_tpu/models/base.py:91-106)."""
     model = get_eq_model(cfg.equilib_model)
+    st, p, sp = cfg.eq_static, params.eq, params.species
+    analytic = getattr(model, "supports_analytic_jac", None)
+    closed = analytic is None or analytic(st, p)
     fused = getattr(model, "fields_jac_geom", None)
-    if fused is not None:
-        (bvec, ns, ts), (jb, jn, jt), geom = fused(
-            cfg.eq_static, params.eq, params.species, x)
+    if closed and fused is not None:
+        (bvec, ns, ts), (jb, jn, jt), geom = fused(st, p, sp, x)
     else:
-        (bvec, ns, ts), (jb, jn, jt) = model.fields_and_jac(
-            cfg.eq_static, params.eq, params.species, x)
-        geom = model.geom_err(cfg.eq_static, params.eq, x)
+        if closed and hasattr(model, "fields_and_jac"):
+            (bvec, ns, ts), (jb, jn, jt) = model.fields_and_jac(st, p, sp, x)
+        else:
+            (bvec, ns, ts), (jb, jn, jt) = value_and_jacfwd(
+                lambda xx: model.fields(st, p, sp, xx), x)
+        geom = model.geom_err(st, p, x)
     err = _combine_err(geom, ns, ts)
     # jb[b, j, i] = dB_j/dx_i  ->  gradb[b, i, j], the reference convention
     raw = RawEq(bvec=bvec, gradb=jb.transpose(1, 2), ns=ns, gradns=jn,

@@ -185,6 +185,15 @@ def _geom_code(p, rvec, aphin):
     return code
 
 
+def supports_analytic_jac(static: MultipleMirrorStatic, p: MultipleMirrorParams) -> bool:
+    """True: ``fields_jac_geom`` covers every profile model that ``fields``
+    accepts, with or without a cell table (any other name raises there).
+    The hook exists for parity with the JAX package, whose closed form
+    needs the cell table and an analytic profile
+    (rays_tpu/models/multiple_mirror.py:249)."""
+    return True
+
+
 def fields_jac_geom(static: MultipleMirrorStatic, p: MultipleMirrorParams,
                     species, rvec):
     """``fields_and_jac`` and ``geom_err`` from one coefficient fetch:

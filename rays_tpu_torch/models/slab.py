@@ -60,6 +60,23 @@ class SlabParams(NamedTuple):
     t_min: Any    # (S,)
 
 
+def default_params(ns: int) -> SlabParams:
+    """Neutral slab parameters for ``ns`` species, field for field those
+    of ``rays_tpu.models.slab.default_params``: python floats, and float64
+    CPU tensors for the per-species fields (``core.types.asarrays`` makes
+    every leaf a tensor of a chosen dtype and device)."""
+    z = 0.0
+    zs = torch.zeros((ns,), dtype=torch.float64)
+    return SlabParams(
+        xmin=-1.0, xmax=1.0, ymin=-1.0, ymax=1.0, zmin=-1.0, zmax=1.0,
+        rmaj=1.0, rmin=0.5, x0=z,
+        bx0=z, by0=z, bz0=1.0, lby_shear_scale=1.0, lbz_scale=1.0, dbzdx=z,
+        ln_scale=1.0, dndx=z, alphan1=1.0, alphan2=2.0, n_min=z,
+        lt_scale=1.0, dtdx=z, alphat1=torch.ones((ns,), dtype=torch.float64),
+        alphat2=2 * torch.ones((ns,), dtype=torch.float64), t_min=zs,
+    )
+
+
 def _by(m, p, x):
     """By and dBy/dx (slab_eq_m.f90:184-206)."""
     zero = torch.zeros_like(x)

@@ -53,6 +53,19 @@ class SolovevParams(NamedTuple):
     box_zmax: Any
 
 
+def default_params(ns: int) -> SolovevParams:
+    """Neutral Solovev parameters for ``ns`` species, field for field those
+    of ``rays_tpu.models.solovev.default_params`` (python floats; float64
+    CPU tensors for the per-species fields)."""
+    return SolovevParams(
+        rmaj=1.0, kappa=1.0, bphi0=1.0, iota0=0.5, outer_bound=1.3,
+        alphan1=1.0, alphan2=2.0,
+        alphat1=torch.ones((ns,), dtype=torch.float64),
+        alphat2=2 * torch.ones((ns,), dtype=torch.float64),
+        box_rmin=0.05, box_rmax=2.5, box_zmin=-2.0, box_zmax=2.0,
+    )
+
+
 def psi_boundary(p: SolovevParams):
     """Flux at the plasma boundary (solovev_eq_m.f90:89-92)."""
     bp0 = p.bphi0 * p.iota0

@@ -94,14 +94,16 @@ def route(cfg, needs_grad, device) -> str:
     backward; the JAX package's adjoint, too, is reverse mode through its
     plain scan).  Every other config the port supports (the adaptive
     stepper, the Solovev tokamak, the spline geometries, the
-    equilibrium-gradient slots, the autodiff derivatives) runs ``trace_batch`` on the card, as the JAX
-    package runs them as plain XLA operations.  This is a choice, not a
+    equilibrium-gradient slots, the autodiff derivatives, a model of the
+    caller's own from ``base.register_eq_model``, even under a built-in
+    name) runs ``trace_batch`` on the card, as the JAX package runs them
+    as plain XLA operations.  This is a choice, not a
     fallback: a kernel that fails to build or launch raises."""
     check_supported(cfg)
     kind = torch.device(device).type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"trace_rays: unsupported device {device}")
-    if kind == "cpu" or needs_grad:
+    if kind == "cpu" or needs_grad or cfg.equilib_model in base.EQ_MODELS:
         return "plain"
     from rays_tpu_torch.tracing import fused_slab
 

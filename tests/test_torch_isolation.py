@@ -41,6 +41,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "rays_tpu_torch.utils.erays, rays_tpu_torch.utils.doc_modules, "
     "rays_tpu_torch.tracing.compensated, rays_tpu_torch.parallel.sharded, "
     "rays_tpu_torch.parallel.multihost, rays_tpu_torch.entry",
+    "rays_tpu_torch.utils.op_census, rays_tpu_torch.utils.op_rates, "
+    "rays_tpu_torch.utils.measure",
 ])
 def test_import_pulls_in_no_jax(modules):
     code = (f"import sys, {modules}\n"
@@ -54,8 +56,11 @@ def test_import_pulls_in_no_jax(modules):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+NEW_TOOLS = ["step_profile", "op_roofline", "precision_probe", "profile_mirror"]
+
+
 @pytest.mark.parametrize("tool", ["run_ds_scan", "run_batch_scan", "validate_all",
-                                  "inverse_demo"])
+                                  "inverse_demo", *NEW_TOOLS])
 def test_tools_pull_in_no_jax(tool):
     """The port's tools, imported as modules by their paths, load neither
     JAX nor the JAX package."""
@@ -164,3 +169,22 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(fused_slab.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         fused_slab._nvcc()
+
+
+@pytest.mark.parametrize("tool", NEW_TOOLS)
+def test_measurement_tools_default_to_cuda_and_raise_without_it(tool, tmp_path):
+    """The measurement tools run on the card unless asked for the CPU;
+    without one they fail before they measure or write anything."""
+    _no_cuda()
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"iso_{tool}",
+                                                  os.path.join(ROOT, "tools", f"{tool}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = tmp_path / "report.txt"
+    with pytest.raises((RuntimeError, AssertionError)):
+        mod.main(["--out", str(out)])
+    with pytest.raises((RuntimeError, AssertionError)):
+        mod.run()
+    assert not out.exists()
