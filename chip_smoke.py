@@ -11,13 +11,22 @@ raises and the script exits non-zero.
     python3 chip_smoke.py                 # every group, from the root of a checkout
     python3 chip_smoke.py --group adjoint # one group alone, at its full depth
 
-The phases come in seven groups (phase 1, the device and the build of
+The phases come in eight groups (phase 1, the device and the build of
 every kernel library, runs in every call):
 
 * kernel, phases 2-8: the build; the undamped slab ECH 90 GHz main path
   (32,768 rays x 500 steps, f64 and f32, timed against the plain twin and
   its bound, the card filled at 524,288 rays, the CLI); the damped example
   through the kernel and the damped batch (32,768 rays x 400 steps).
+* graph, phase 29: every path that trace_rays sends to the graphed tracer
+  (tracing/graphed.py: the slab under RK4 with the equilibrium-gradient
+  slots, with the autodiff derivatives, under SG with a fixed substep
+  budget and with its loop; Solovev under SG and RK4; the EQDSK tokamak;
+  the damped mirror; the compensated float32 carry) at GRAPH_RAYS rays x
+  GRAPH_STEPS steps with trajectories, against its eager trace_batch bit
+  for bit on every field, twice (the second call replays the first call's
+  capture with the inputs copied in again), with the captures and replays
+  counted and the one-off capture timed.
 * adjoint, phases 9, 13 and 16: the training step of __graft_entry__.py
   (32,768 damped rays x 400 steps, trajectories on, forward, backward and
   a finite-difference check through the kernel), the adaptive training
@@ -28,13 +37,15 @@ every kernel library, runs in every call):
 * plain, phases 10-12: the Solovev tokamak fan under the adaptive stepper
   (the example against the same code on the CPU, the CLI, 32,768 rays x
   200 outer steps, RK4 at f64 and f32) and the slab under the adaptive
-  stepper (32,768 rays x 500 outer steps, f64 and f32).  No kernel: plain
-  PyTorch on the card, as the JAX package runs them as plain XLA.
+  stepper (32,768 rays x 500 outer steps, f64 and f32).  No hand-written
+  kernel: the graph route, trace_batch's step captured as a CUDA graph
+  and replayed, as the JAX package runs them as one compiled program (the
+  group keeps its older name).
 * spline, phases 14-16: the EQDSK tokamak (a 129 x 129 G-EQDSK written by
   the port's solovev_2_eqdsk) and the multiple mirror (a 51 x 201 field
   file from the port's coil-field generator): launch rays against the CPU,
-  the CLI, 32,768 rays x 500 RK4 steps at f64 and f32; then the EQDSK
-  adjoint.  ``--only-spline`` is an alias of ``--group spline``.
+  the CLI, 32,768 rays x 500 RK4 steps at f64 and f32, through the graph
+  route; then the EQDSK adjoint.  ``--only-spline`` is an alias of ``--group spline``.
 * post, phases 17-19: post-processing on the card.  17: the damped batch
   traced by the kernel with trajectories (32,768 x 401 points), then the
   ray diagnostics, the resonance and cutoff scan, the kx roots and the
@@ -55,7 +66,7 @@ every kernel library, runs in every call):
   processes: a world of 1 over NCCL (the damped 32,768-ray trace and its
   all_reduced profile against the unsplit run) and
   entry.dryrun_multiprocess(2), two processes on the one card over gloo;
-  24 the compensated carry (f32, 32,768 rays x 100 steps, plain route) and
+  24 the compensated carry (f32, 32,768 rays x 100 steps, graph route) and
   the inverse demo at its start, card against CPU (INVERSE_STEPS RK4
   steps; the default call cuts them to INVERSE_STEPS_DEFAULT and says so).
   The batch and RK4 ds scans run alone on the card; the SG ladder,
@@ -63,8 +74,10 @@ every kernel library, runs in every call):
   phases 22-24.
 * profile, phases 25-28: the measurement tools.  25 tools/step_profile.py
   (B1's operations per ray step; the op census of one outer step of the
-  slab RK4, slab SG, Solovev SG, EQDSK and mirror paths beside the CUDA
-  kernels, device time and busy share that torch.profiler sees; B1's
+  slab RK4 (plain and with the equilibrium-gradient slots), slab SG,
+  Solovev SG, EQDSK and mirror paths beside the CUDA kernels, device time
+  and busy share that torch.profiler sees, eager and graphed, with the
+  graphed paths' host reads and capture time; B1's
   device time at 256 and 32,768 rays; trace_rays' fixed cost per call);
   26 tools/op_roofline.py (the op-rate kernels of csrc/op_rates.cu, each
   held to its plain chain at the full depth and one iteration short, and
@@ -80,7 +93,7 @@ every kernel library, runs in every call):
   says so in their lines.
 
 The last lines are the total wall time, a JSON line of the times of the
-paths without a kernel, a JSON summary of the kernels (B1's two entries
+paths without a kernel (each trace with its route), a JSON summary of the kernels (B1's two entries
 when the kernel group ran, the op-rate kernels' when the profile group
 ran) and {"ok": true, "device": {...}}.  Without a CUDA device it
 exits non-zero and prints no result.
@@ -146,7 +159,9 @@ TRAIN_STEPS_DEFAULT = 100   # ... in the default call, which runs every group
 SG_ADJOINT_STEPS = 100      # outer steps of the adaptive training step
 SG_ADJOINT_STEPS_DEFAULT = 50
 SG_FD_STEPS = 20        # outer steps of its finite-difference check
-GROUPS = ("kernel", "adjoint", "plain", "spline", "post", "tools", "profile")
+GROUPS = ("kernel", "graph", "adjoint", "plain", "spline", "post", "tools", "profile")
+GRAPH_RAYS = 4096       # phase 29: each graphed path against its eager twin
+GRAPH_STEPS = 50
 # post-processing (phases 17-19): the rays the CPU recomputes, and the
 # tolerances of tests/test_torch_post_*.py for the card against the CPU
 N_HOST_CHECK = 64
@@ -247,22 +262,24 @@ def time_plain_and_kernel(fused_slab, cfg, params, v, st, w):
     return (runs[0] + runs[2]) / 2, runs[1], runs
 
 
-def plain_run(cfg_, params_, v_, st_, w_):
-    """trace_rays on a config that takes the plain route on the card:
+def graph_run(cfg_, params_, v_, st_, w_):
+    """trace_rays on a config that takes the graph route on the card:
     (results, ms by CUDA events, (loops, host reads, attempts, rejected) of
-    the substep loop, peak bytes).  No kernel launch."""
-    from rays_tpu_torch.tracing import fused_slab, rk45
+    the substep loop, peak bytes).  No kernel launch; the first call of a
+    configuration includes its capture."""
+    from rays_tpu_torch.tracing import fused_slab, graphed, rk45
     from rays_tpu_torch.tracing.trace import route, trace_rays
 
-    require(route(cfg_, False, v_.device) == "plain", "expected the plain route")
-    before = fused_slab.LAUNCHES
+    require(route(cfg_, False, v_.device) == "graph", "expected the graph route")
+    before, replays = fused_slab.LAUNCHES, graphed.REPLAYS
     rk45.stats = rk45.SubstepStats()
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         ms, res = timed(lambda: trace_rays(cfg_, params_, v_, st_, w_))
     totals = rk45.stats.totals()
     rk45.stats = None
-    require(fused_slab.LAUNCHES == before, "the plain route launched the kernel")
+    require(fused_slab.LAUNCHES == before, "the graph route launched the kernel")
+    require(graphed.REPLAYS - replays >= cfg_.nstep_max, "the graph route replayed no step")
     require(all(t.is_cuda for t in res if t is not None), "results left the card")
     return res, ms, totals, torch.cuda.max_memory_allocated()
 
@@ -402,7 +419,7 @@ def spline_geometry_phase(phase, name, write_example, card, dev, paths, extra_ch
     require(all(t.is_cuda for t in (v0, st0, pwr)), "the launch rays are not on the card")
 
     # (a) the launch rays, trajectories on, against the same code on the CPU
-    ex, ex_ms, _, _ = plain_run(cfg, params, v0, st0, pwr)
+    ex, ex_ms, _, _ = graph_run(cfg, params, v0, st0, pwr)
     host = trace_rays(*host_case)
     require(torch.equal(ex.npoints.cpu(), host.npoints), f"{name} npoints: card != CPU")
     require(torch.equal(ex.stop_flag.cpu(), host.stop_flag), f"{name} flags: card != CPU")
@@ -413,7 +430,7 @@ def spline_geometry_phase(phase, name, write_example, card, dev, paths, extra_ch
     require(err <= HOST_RTOL, f"{name} card vs CPU {err:.3e} > {HOST_RTOL}")
     require(min(npts) > 5 and res_max < SPLINE_RESID_MAX,
             f"{name} npoints {npts} max residual {res_max:.3e}")
-    print(f"phase {phase} {name} example f64, RK4 x {cfg.nstep_max} steps, route plain: files and "
+    print(f"phase {phase} {name} example f64, RK4 x {cfg.nstep_max} steps, route graph: files and "
           f"setup {t_setup:.2f} s; {len(npts)} rays, npoints {npts} flags {flags} max residual "
           f"{res_max:.3e}; card vs CPU trajectory err {err:.3e} of scale (bound {HOST_RTOL}); "
           f"{ex_ms:.1f} ms; {extra_check(cfg, params)}")
@@ -429,13 +446,13 @@ def spline_geometry_phase(phase, name, write_example, card, dev, paths, extra_ch
     cfg_b = dataclasses.replace(cfg, save_trajectory=False, nstep_max=SPLINE_BATCH_STEPS)
     vb, stb, wb = examples.replicate_rays(v0, st0, pwr, N_RAYS)
     params32 = tree_to(params, dtype=f32)
-    plain_run(dataclasses.replace(cfg_b, nstep_max=3), params, vb, stb, wb)        # warm-up
+    graph_run(dataclasses.replace(cfg_b, nstep_max=3), params, vb, stb, wb)        # warm-up
     n_eval = 4 * cfg_b.nstep_max + 1
     table = params.eq.mag.psi_cells.cells if name == "EQDSK" else params.eq.field_cells.cells
     out = {}
     for dt, p_, v_, w_ in ((f64, params, vb, wb), (f32, params32, vb.to(f32), wb.to(f32))):
         tag = "f32" if dt == f32 else "f64"
-        res, ms, _, peak = plain_run(cfg_b, p_, v_, stb, w_)
+        res, ms, _, peak = graph_run(cfg_b, p_, v_, stb, w_)
         out[dt] = res
         size = torch.finfo(dt).bits // 8
         row = table.shape[2] * 16 * size
@@ -445,8 +462,8 @@ def spline_geometry_phase(phase, name, write_example, card, dev, paths, extra_ch
               f"{N_RAYS * row / op_rates.HBM_BYTES_PER_S * 1e3:.5f} ms at the memory rate); peak memory "
               f"{peak / 2**30:.3f} GiB; npoints {sorted(set(res.npoints.tolist()))[:6]} flags "
               f"{flag_counts(res)} max residual {float(res.max_residuals.max()):.3e} on {card}")
-        paths.append({"name": f"{name.lower()}_rk4_{tag}", "ms": ms, "ms_per_evaluation": ms / n_eval,
-                      "rays_per_s": N_RAYS / ms * 1e3})
+        paths.append({"name": f"{name.lower()}_rk4_{tag}", "route": "graph", "ms": ms,
+                      "ms_per_evaluation": ms / n_eval, "rays_per_s": N_RAYS / ms * 1e3})
     # the batch's first rays are the example's: those the example's depth
     # did not cut stop at the same point with the same flag
     for i, n in enumerate(npts):
@@ -515,7 +532,7 @@ def spline_phases(run):
     eqdsk_adjoint_phase(run, (cfg_e, params_e, v0_e, st0_e, pwr_e))
     require(fused_slab.LAUNCHES == launches_before,
             "phases 14-16 launched the slab kernel")
-    print("phases 14-16: route plain throughout, no kernel launch counted")
+    print("phases 14-16: route graph in 14-15, plain in the adjoint (16); no kernel launch counted")
 
 
 def spline_example(write_example, directory, dev):
@@ -578,7 +595,7 @@ def eqdsk_adjoint_phase(run, case=None):
           f"finite, the psi cell table's {tuple(g_cells.shape)} with "
           f"{int((g_cells != 0).sum())} nonzero entries, max {float(g_cells.abs().max()):.3e} "
           f"on {card}")
-    paths.append({"name": "eqdsk_adjoint_f64", "ms": fwd + bwd, "forward_ms": fwd,
+    paths.append({"name": "eqdsk_adjoint_f64", "route": "plain", "ms": fwd + bwd, "forward_ms": fwd,
                   "backward_ms": bwd, "steps": EQDSK_ADJOINT_STEPS,
                   "rays_per_s": N_RAYS / (fwd + bwd) * 1e3})
     del grads_a, pg, vb, stb, wb
@@ -1013,7 +1030,7 @@ def plain_phases(run, big64_end=None):
     require(cfg_s.ode_solver_name == "SG_ODE" and cfg_s.save_trajectory
             and cfg_s.nstep_max == 200, "the Solovev example changed")
     require(not fused_slab.supported(cfg_s), "the gate must refuse the Solovev example")
-    sol, sol_ms, sol_tot, _ = plain_run(cfg_s, params_s, v0_s, st0_s, pwr_s)
+    sol, sol_ms, sol_tot, _ = graph_run(cfg_s, params_s, v0_s, st0_s, pwr_s)
     host = trace_rays(*examples.setup_example(examples.SOLOVEV_ECH_90GHZ, device="cpu",
                                               dtype=f64))
     require(torch.equal(sol.npoints.cpu(), host.npoints), "Solovev npoints: card != CPU")
@@ -1025,7 +1042,7 @@ def plain_phases(run, big64_end=None):
     require(min(sol_npts) > SOLOVEV_MIN_POINTS, f"Solovev npoints {sol_npts}")
     require(sol_res < SOLOVEV_RESID_MAX, f"Solovev max residual {sol_res:.3e}")
     require(sol_err <= HOST_RTOL, f"Solovev card vs CPU {sol_err:.3e} > {HOST_RTOL}")
-    print(f"phase 10 Solovev example f64, SG_ODE, route plain: npoints {sol_npts} flags "
+    print(f"phase 10 Solovev example f64, SG_ODE, route graph: npoints {sol_npts} flags "
           f"{sol_flags} max residual {sol_res:.3e}; card vs CPU trajectory err "
           f"{sol_err:.3e} of scale (bound {HOST_RTOL}); {sol_ms:.1f} ms; "
           f"{substep_report(sol_tot, len(sol_npts), cfg_s.nstep_max)}")
@@ -1057,8 +1074,8 @@ def plain_phases(run, big64_end=None):
     # phase 12 (a): the Solovev fan at 32,768 rays x 200 outer steps, f64
     cfg_sb = dataclasses.replace(cfg_s, save_trajectory=False)
     vs, sts, ws = examples.replicate_rays(v0_s, st0_s, pwr_s, N_RAYS)
-    plain_run(dataclasses.replace(cfg_sb, nstep_max=3), params_s, vs, sts, ws)   # warm-up
-    sb, sb_ms, sb_tot, sb_peak = plain_run(cfg_sb, params_s, vs, sts, ws)
+    graph_run(dataclasses.replace(cfg_sb, nstep_max=3), params_s, vs, sts, ws)   # warm-up
+    sb, sb_ms, sb_tot, sb_peak = graph_run(cfg_sb, params_s, vs, sts, ws)
     n5 = len(sol_npts)
     require(sb.npoints[:n5].tolist() == sol_npts
             and sb.stop_flag[:n5].tolist() == sol.stop_flag.tolist(),
@@ -1071,13 +1088,14 @@ def plain_phases(run, big64_end=None):
           f"{substep_report(sb_tot, N_RAYS, cfg_s.nstep_max)}; peak memory "
           f"{sb_peak / 2**30:.3f} GiB; npoints {sorted(set(sb.npoints.tolist()))} flags "
           f"{flag_counts(sb)} max residual {float(sb.max_residuals.max()):.3e} on {card}")
-    paths.append({"name": "solovev_sg_f64", "ms": sb_ms, "rays_per_s": N_RAYS / sb_ms * 1e3})
+    paths.append({"name": "solovev_sg_f64", "route": "graph", "ms": sb_ms,
+                  "rays_per_s": N_RAYS / sb_ms * 1e3})
     # float32 on the fan: under fixed-step RK4, as tests/test_precision.py
     # holds it (the example's tolerance 1e-7 is below float32's resolution)
     cfg_sr = dataclasses.replace(cfg_sb, ode_solver_name="RK4_ODE")
     params_s32 = tree_to(params_s, dtype=f32)
-    sr64, sr64_ms, _, _ = plain_run(cfg_sr, params_s, vs, sts, ws)
-    sr32, sr32_ms, _, _ = plain_run(cfg_sr, params_s32, vs.to(f32), sts, ws.to(f32))
+    sr64, sr64_ms, _, _ = graph_run(cfg_sr, params_s, vs, sts, ws)
+    sr32, sr32_ms, _, _ = graph_run(cfg_sr, params_s32, vs.to(f32), sts, ws.to(f32))
     require(torch.equal(sr32.npoints, sr64.npoints) and torch.equal(sr32.stop_flag, sr64.stop_flag),
             "Solovev RK4 f32 npoints or flags differ from f64")
     ex, ek = group_err(sr32.end_ray_vec, sr64.end_ray_vec)
@@ -1090,19 +1108,21 @@ def plain_phases(run, big64_end=None):
           f"f32 {sr32_ms:.1f} ms; f32 vs f64 endpoints {ex:.3e} (positions), {ek:.3e} (k) of "
           f"scale (bounds {F32_RTOL_SOLOVEV}); SG f64 vs RK4 f64 on the {int(whole.sum())} rays both "
           f"trace to the end {sg_rk[0]:.3e}, {sg_rk[1]:.3e}")
-    paths.append({"name": "solovev_rk4_f64", "ms": sr64_ms, "rays_per_s": N_RAYS / sr64_ms * 1e3})
-    paths.append({"name": "solovev_rk4_f32", "ms": sr32_ms, "rays_per_s": N_RAYS / sr32_ms * 1e3})
+    paths.append({"name": "solovev_rk4_f64", "route": "graph", "ms": sr64_ms,
+                  "rays_per_s": N_RAYS / sr64_ms * 1e3})
+    paths.append({"name": "solovev_rk4_f32", "route": "graph", "ms": sr32_ms,
+                  "rays_per_s": N_RAYS / sr32_ms * 1e3})
     del sb, sr64, sr32, vs, sts, ws
 
     # phase 12 (b): the slab under SG_ODE, 32,768 rays x 500 outer steps
     # (bench.py's bench_sg_adaptive), f64 and f32
     (cfg_g, params_g, v0_g, st0_g, pwr_g), (cfg_gb, vg, stg, wg) = slab_sg_case(dev)
-    ex_g, _, _, _ = plain_run(cfg_g, params_g, v0_g, st0_g, pwr_g)
+    ex_g, _, _, _ = graph_run(cfg_g, params_g, v0_g, st0_g, pwr_g)
     params_g32 = tree_to(params_g, dtype=f32)
     slab_sg = {}
     for dt, p_, v_, w_ in ((f64, params_g, vg, wg), (f32, params_g32, vg.to(f32), wg.to(f32))):
         name = "f32" if dt == f32 else "f64"
-        res, ms, tot, peak = plain_run(cfg_gb, p_, v_, stg, w_)
+        res, ms, tot, peak = graph_run(cfg_gb, p_, v_, stg, w_)
         slab_sg[dt] = res
         require(res.npoints[:3].tolist() == ex_g.npoints.tolist()
                 and res.stop_flag[:3].tolist() == ex_g.stop_flag.tolist(),
@@ -1112,7 +1132,8 @@ def plain_phases(run, big64_end=None):
               f"{substep_report(tot, N_RAYS, cfg_g.nstep_max)}; peak memory "
               f"{peak / 2**30:.3f} GiB; npoints {sorted(set(res.npoints.tolist()))} max "
               f"residual {float(res.max_residuals.max()):.3e} on {card}")
-        paths.append({"name": f"slab_sg_{name}", "ms": ms, "rays_per_s": N_RAYS / ms * 1e3})
+        paths.append({"name": f"slab_sg_{name}", "route": "graph", "ms": ms,
+                      "rays_per_s": N_RAYS / ms * 1e3})
     require(torch.equal(slab_sg[f32].npoints, slab_sg[f64].npoints), "slab SG f32 npoints")
     ex, ek = group_err(slab_sg[f32].end_ray_vec, slab_sg[f64].end_ray_vec)
     require(ex <= SG_F32_RTOL_SLAB[0] and ek <= SG_F32_RTOL_SLAB[1],
@@ -1170,7 +1191,8 @@ def sg_training_phase(run, steps):
           f"sg_scan_substeps 2, summaries only): loss {float(loss_a):.12e}, forward "
           f"{fwd_a:.1f} ms, backward {bwd_a:.1f} ms, peak memory {peak_a / 2**30:.2f} GiB; "
           f"{len(grads_a)} leaf gradients all finite on {card}")
-    paths.append({"name": "slab_sg_training_step_f64", "ms": fwd_a + bwd_a, "forward_ms": fwd_a,
+    paths.append({"name": "slab_sg_training_step_f64", "route": "plain", "ms": fwd_a + bwd_a,
+                  "forward_ms": fwd_a,
                   "backward_ms": bwd_a, "outer_steps": steps,
                   "rays_per_s": N_RAYS / (fwd_a + bwd_a) * 1e3})
     del res_a, grads_a
@@ -1199,6 +1221,59 @@ def sg_training_phase(run, steps):
     print(f"phase 13 SG gradient check, 3 rays x {SG_FD_STEPS} outer steps: loss "
           f"{float(loss_f):.12e}, directional derivative {dd_sg:.10e} vs central difference "
           f"{fd_sg:.10e} (eps {FD_EPS} of each leaf), rel diff {fd_sg_rel:.3e} (bound {FD_RTOL})")
+
+
+def graph_phase(run):
+    """Phase 29: every path of the graph route against its eager twin on
+    the card, at GRAPH_RAYS rays x GRAPH_STEPS steps with trajectories:
+    trace_rays (captured at the first call, replayed at the second, the
+    inputs copied in each time) bit for bit equal to trace_batch on every
+    RayResults field; captures and replays counted, the capture timed."""
+    from rays_tpu_torch.tracing import fused_slab, graphed, rk45
+    from rays_tpu_torch.tracing.trace import RayResults, route, trace_batch, trace_rays
+
+    card, dev = run.card, run.dev
+    sp = _tool("step_profile")
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = sp.graph_cases(dev, GRAPH_RAYS, tmp)
+    t_phase = time.perf_counter()
+    for name, (cfg, params, v, st, w) in cases.items():
+        cfg = dataclasses.replace(cfg, nstep_max=GRAPH_STEPS)
+        require(route(cfg, False, dev) == "graph" and not fused_slab.supported(cfg),
+                f"{name}: expected the graph route")
+        with torch.no_grad():
+            trace_batch(dataclasses.replace(cfg, nstep_max=2), params, v, st, w)  # warm-up
+            eager_ms, ref = timed(lambda: trace_batch(cfg, params, v, st, w))
+            c0, r0, l0 = graphed.CAPTURES, graphed.REPLAYS, fused_slab.LAUNCHES
+            first_ms, first = timed(lambda: trace_rays(cfg, params, v, st, w))
+            c1, r1 = graphed.CAPTURES, graphed.REPLAYS
+            second_ms, second = timed(lambda: trace_rays(cfg, params, v, st, w))
+        require(c1 - c0 == 1 and graphed.CAPTURES == c1,
+                f"{name}: {graphed.CAPTURES - c0} captures in two calls")
+        require(fused_slab.LAUNCHES == l0, f"{name}: the graph route launched B1")
+        loop_form = cfg.ode_solver_name == "SG_ODE" and cfg.sg_scan_substeps == 0
+        per_call = (r1 - r0, graphed.REPLAYS - r1)
+        require(per_call[0] == per_call[1] and (
+            per_call[0] >= 2 * GRAPH_STEPS if loop_form else per_call[0] == GRAPH_STEPS),
+            f"{name}: replays per call {per_call}")
+        for tag, got in (("first", first), ("second", second)):
+            bad = [f for f, g, r in zip(RayResults._fields, got, ref)
+                   if (g is None) != (r is None) or (r is not None and not torch.equal(g, r))]
+            require(not bad, f"{name} {tag} call: fields {bad} differ from trace_batch's")
+        print(f"phase 29 {name} {GRAPH_RAYS} rays x {GRAPH_STEPS} steps "
+              f"{str(v.dtype).replace('torch.', '')}: graphed equal to trace_batch bit for bit on "
+              f"every field, both calls; 1 capture, {per_call[0]} replays a call; eager "
+              f"{eager_ms:.1f} ms, graphed {second_ms:.1f} ms (x{eager_ms / second_ms:.2f}), first "
+              f"call {first_ms:.1f} ms (capture {first_ms - second_ms:.1f} ms); npoints "
+              f"{sorted(set(ref.npoints.tolist()))[:4]}")
+        run.paths.append({"name": f"graph_{name}", "route": "graph", "ms": second_ms,
+                          "eager_ms": eager_ms, "capture_ms": first_ms - second_ms,
+                          "replays": per_call[0]})
+    require(rk45.stats is None, "the substep counts were left on")
+    print(f"phase 29 {len(cases)} graphed paths bit-equal to their eager twins in "
+          f"{time.perf_counter() - t_phase:.1f} s; graphed.CAPTURES {graphed.CAPTURES}, "
+          f"graphed.REPLAYS {graphed.REPLAYS} in this process; cache of "
+          f"{graphed.CACHE_SIZE}, {graphed.CHUNK} substep pass per read on {card}")
 
 
 def post_main_path_phase(run):
@@ -1316,7 +1391,7 @@ def post_spline_phase(run):
         with tempfile.TemporaryDirectory() as tmp:
             _, (cfg, params, v0, st0, pwr) = spline_example(write, tmp, dev)
             vb, stb, wb = examples.replicate_rays(v0, st0, pwr, N_RAYS)
-            res, t_trace, _, _ = plain_run(cfg, params, vb, stb, wb)
+            res, t_trace, _, _ = graph_run(cfg, params, vb, stb, wb)
             ray_diags.compute_ray_diagnostics(cfg, params, first_rays(res, N_HOST_CHECK))
             t_diag, diags, peak_diag = timed_peak(
                 lambda: ray_diags.compute_ray_diagnostics(cfg, params, res))
@@ -1609,7 +1684,7 @@ def tools_phases(run, fill, inverse_steps):
             require(stages[name]["route"] == "kernel" and stages[name]["launches"] >= 1,
                     f"validate_all {name} did not run B1: {stages[name]}")
         for name in ("solovev", "axisym", "mirror"):
-            require(stages[name]["route"] == "plain" and stages[name]["launches"] == 0,
+            require(stages[name]["route"] == "graph" and stages[name]["launches"] == 0,
                     f"validate_all {name}: {stages[name]}")
         print("phase 21 tools/validate_all.py on the card: " + "; ".join(
             f"{n} PASS, {r['route']} ({r['launches']} launches), trace {r['wall_s']:.3f} s, "
@@ -1757,7 +1832,7 @@ def split_phase(run):
 
 def compensated_phase(run):
     """Phase 24: the compensated carry, f32 slab at N_RAYS x COMP_STEPS
-    through the plain route, against the same run without the carry."""
+    through the graph route, against the same run without the carry."""
     from rays_tpu_torch import examples
     from rays_tpu_torch.tracing import fused_slab
     from rays_tpu_torch.tracing.trace import route, trace_batch, trace_rays
@@ -1766,12 +1841,13 @@ def compensated_phase(run):
     cfg, params, v0, st0, pwr = examples.setup_example(device=dev, dtype=torch.float32)
     plain_cfg = dataclasses.replace(cfg, nstep_max=COMP_STEPS, save_trajectory=False)
     comp_cfg = dataclasses.replace(plain_cfg, compensated_sum=True)
-    require(route(comp_cfg, False, dev) == "plain" and not fused_slab.supported(comp_cfg),
-            "a compensated run must take the plain route")
+    require(route(comp_cfg, False, dev) == "graph" and not fused_slab.supported(comp_cfg),
+            "a compensated run must take the graph route")
     vb, sb, wb = examples.replicate_rays(v0, st0, pwr, N_RAYS)
     before = fused_slab.LAUNCHES
-    for c in (plain_cfg, comp_cfg):     # warm-up of both
-        trace_batch(dataclasses.replace(c, nstep_max=3), params, vb, sb, wb)
+    # warm-up of both; the carry's with its capture
+    trace_batch(dataclasses.replace(plain_cfg, nstep_max=3), params, vb, sb, wb)
+    trace_rays(comp_cfg, params, vb, sb, wb)
     t_plain, plain = timed(lambda: trace_batch(plain_cfg, params, vb, sb, wb))
     t_comp, comp = timed(lambda: trace_rays(comp_cfg, params, vb, sb, wb))
     require(fused_slab.LAUNCHES == before, "the compensated run launched B1")
@@ -1784,10 +1860,11 @@ def compensated_phase(run):
     require(bool(torch.isfinite(c).all()) and float(c.abs().max()) > 0
             and ratio < COMP_STEPS * COMP_ULP, f"carry: ratio {ratio:.3e}")
     print(f"phase 24 compensated carry, f32 slab {N_RAYS} rays x {COMP_STEPS} steps on {dev} "
-          f"(plain route): state and npoints bit-equal to the run without it; carry finite, "
+          f"(graph route): state and npoints bit-equal to the run without it; carry finite, "
           f"nonzero, at most {ratio:.3e} of scale (bound {COMP_STEPS * COMP_ULP:.1e}); "
-          f"{t_comp:.1f} ms with the carry, {t_plain:.1f} ms without")
-    run.paths.append({"name": "compensated_f32", "ms": t_comp, "plain_ms": t_plain})
+          f"{t_comp:.1f} ms with the carry (graphed), {t_plain:.1f} ms without (eager)")
+    run.paths.append({"name": "compensated_f32", "route": "graph", "ms": t_comp,
+                      "plain_ms": t_plain})
 
 
 def inverse_phase(run, steps):
@@ -1867,19 +1944,29 @@ def profile_phases(run, full):
     for name, per in rep["b1_ops"].items():
         print(f"phase 25 B1 {name}: {sum(per.values()):.1f} operations per ray step "
               f"({', '.join(f'{k} {v:.2f}' for k, v in per.items() if v)})")
-    for name, c in rep["census"].items():
-        w = rep["windows"][name]
-        require(c.n_ops > 0, f"{name}: an empty census")
+    def window(w):
         if w["profiled"]:
-            prof = (f"{w['kernels']:.1f} CUDA kernels and {w['copies']:.1f} copies per outer "
+            return (f"{w['kernels']:.1f} CUDA kernels and {w['copies']:.1f} copies per outer "
                     f"step, device {w['device_us'] / 1e3:.3f} of {w['wall_us'] / 1e3:.3f} ms per "
                     f"step ({w['profiled_wall_us'] / 1e3:.3f} profiled), busy share "
-                    f"{w['busy_share']:.4f}, kernel median {w['quantiles'][1]:.2f} us")
-        else:
-            prof = (f"torch.profiler showed no device time; CUDA events "
-                    f"{w.get('events_ms', float('nan')):.3f} ms per outer step")
-        print(f"phase 25 {name} {N_RAYS} rays f64: census {c.n_ops} aten ops per outer step "
-              f"({c.host_reads} host reads); {prof}{cut}")
+                    f"{w['busy_share']:.4f}, kernel median {w['quantiles'][1]:.2f} us; top: "
+                    + "; ".join(f"{n[:48]} {us:.1f} us x {c:.0f}" for n, us, c in w["top"][:2]))
+        return (f"torch.profiler showed no device time; CUDA events "
+                f"{w.get('events_ms', float('nan')):.3f} ms per outer step")
+
+    for name, c in rep["census"].items():
+        require(c.n_ops > 0, f"{name}: an empty census")
+        print(f"phase 25 {name} {N_RAYS} rays f64 eager: census {c.n_ops} aten ops per outer "
+              f"step ({c.host_reads} host reads); {window(rep['windows'][name])}{cut}")
+        g = rep["graphs"].get(name)
+        if g is not None:
+            print(f"phase 25 {name} {N_RAYS} rays f64 graphed: {window(g)}; host reads "
+                  f"{g['reads']:.3f} and substep passes {g['passes']:.3f} per outer step; "
+                  f"capture {g['capture_ms']:.1f} ms; one replay call on the host "
+                  + ", ".join(f"{k} {us:.1f} us" for k, us in g["launch_us"].items())
+                  + cut)
+    require(set(rep["graphs"]) == set(_tool("step_profile").GRAPHED),
+            f"graphed windows {sorted(rep['graphs'])}")
     for n, b in rep["b1"].items():
         require(b["launches"] == 1, f"B1 at {n} rays: {b}")
         print(f"phase 25 B1 slab f64 x 500, {n} rays: kernel {b['kernel_ms']:.3f} ms of device "
@@ -1899,7 +1986,13 @@ def profile_phases(run, full):
     run.paths.append({"name": "step_profile", "steps": steps, "b1_launches": b1_launches,
                       "aten_ops_per_step": {k: c.n_ops for k, c in rep["census"].items()},
                       "kernels_per_step": {k: w["kernels"] for k, w in rep["windows"].items()},
-                      "busy_share": {k: w["busy_share"] for k, w in rep["windows"].items()}})
+                      "busy_share": {k: w["busy_share"] for k, w in rep["windows"].items()},
+                      "graphed_kernels_per_step": {k: g.get("kernels")
+                                                   for k, g in rep["graphs"].items()},
+                      "graphed_busy_share": {k: g.get("busy_share")
+                                             for k, g in rep["graphs"].items()},
+                      "graphed_capture_ms": {k: g["capture_ms"]
+                                             for k, g in rep["graphs"].items()}})
 
     # phase 26: the op-class rates and B1 priced with them
     t0 = time.perf_counter()
@@ -2069,6 +2162,8 @@ def main(argv=None):
           f"(side by side)")
 
     kernels = kernel_phases(run) if "kernel" in groups else None
+    if "graph" in groups:
+        graph_phase(run)
     if "adjoint" in groups:
         training_phase(run, TRAIN_STEPS_DEFAULT if every else TRAIN_STEPS)
     if "plain" in groups:

@@ -54,7 +54,9 @@ def derive_eq_point(raw: RawEq, species, rf) -> EqPoint:
     bmag = torch.sqrt((bvec**2).sum(-1))
     bsafe = bmag.clamp_min(constants.SAFE_TINY)
     bunit = bvec / bsafe[:, None]
-    gradbmag = torch.matmul(raw.gradb, bunit[:, :, None])[:, :, 0]
+    # gradbmag[i] = sum_j gradb[i,j] * bunit[j], broadcast multiply-reduce
+    # as in the JAX package (no library gemv inside a ray step)
+    gradbmag = (raw.gradb * bunit[:, None, :]).sum(-1)
     gradbunit = (raw.gradb - gradbmag[:, :, None] * bunit[:, None, :]) \
         / bsafe[:, None, None]
 

@@ -214,6 +214,15 @@ def needs_grad(params, *tensors) -> bool:
         or any(leaf.requires_grad for leaf in tree_leaves(params)))
 
 
+def has_tangent(params, *tensors) -> bool:
+    """Whether forward-mode derivatives ride on a Params leaf or one of
+    ``tensors`` (dual tensors of ``torch.autograd.forward_ad``)."""
+    from torch.autograd import forward_ad
+
+    return any(forward_ad.unpack_dual(t).tangent is not None
+               for t in (*tensors, *tree_leaves(params)))
+
+
 def asarrays(tree, dtype=torch.float64, device="cpu"):
     """Map a NamedTuple tree of python scalars, lists and tensors to
     tensors of ``dtype`` on ``device`` (``rays_tpu.core.types.asarrays``,

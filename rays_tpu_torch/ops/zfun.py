@@ -35,7 +35,9 @@ _N_ODD = np.arange(1, 169, 2)
 def dawsn(x):
     """Dawson integral F(x) = exp(-x^2) * int_0^x exp(t^2) dt, real x."""
     x = torch.as_tensor(x)
-    n = torch.as_tensor(_N_ODD, dtype=x.dtype, device=x.device)
+    # made on x's device (no copy from the host inside a ray step): the
+    # odd integers of _N_ODD, exact in every float type
+    n = torch.arange(1, 2 * len(_N_ODD), 2, dtype=x.dtype, device=x.device)
     nh = n * _H
     # odd symmetry folded in: sum over +-n of e^{-(x-nh)^2}/n
     terms = (torch.exp(-(x[..., None] - nh) ** 2)

@@ -14,10 +14,13 @@ and batches it with ``vmap``.  Here the batch is explicit: the loop runs
 while any ray's condition holds, and every update is a ``torch.where`` on
 the ray's own condition, so a ray keeps its whole carry once it is done and
 gets exactly the result it gets when traced alone.  On a CUDA device the
-``any()`` is one host read per substep.
+``any()`` is one host read per pass (the graphed tracer reads one flag per
+captured chunk of passes instead, tracing/graphed.py).
 """
 
 from __future__ import annotations
+
+from typing import Any, NamedTuple
 
 import torch
 
@@ -47,30 +50,44 @@ _MAX_FACTOR = 5.0
 
 
 class SubstepStats:
-    """What the substep loop did since ``reset()``: ``loops`` passes of the
-    lockstep loop and ``host_reads`` of its condition (Python ints),
-    ``attempts`` and ``rejected`` substeps summed over rays (kept on the
-    rays' device; ``totals()`` reads them once)."""
+    """What the substep loop did since ``reset()``: ``loops`` passes in
+    which some ray was live, ``attempts`` and ``rejected`` substeps summed
+    over rays (all three counted on the rays' device, in place, so that a
+    captured pass counts too; ``totals()`` reads them once), and
+    ``host_reads`` of the loop's condition (a Python int)."""
 
     def __init__(self):
         self.reset()
 
     def reset(self):
-        self.loops = 0
         self.host_reads = 0
-        self.attempts = None
-        self.rejected = None
+        self.counts = None      # (3,) int64: loops, attempts, rejected
+
+    def bind(self, device):
+        """Allocate the device counts (zero) if they are not there yet."""
+        if self.counts is None:
+            self.counts = torch.zeros(3, dtype=torch.int64, device=device)
+        return self
 
     def add(self, live, accept):
-        a, r = live.sum(), (live & ~accept).sum()
-        self.attempts = a if self.attempts is None else self.attempts + a
-        self.rejected = r if self.rejected is None else self.rejected + r
+        self.bind(live.device).counts.add_(torch.stack(
+            [live.any().to(torch.int64), live.sum(), (live & ~accept).sum()]))
+
+    def merge(self, other):
+        """Add another record's counts and reads into this one."""
+        self.host_reads += other.host_reads
+        if other.counts is not None:
+            self.bind(other.counts.device).counts.add_(other.counts)
+
+    @property
+    def loops(self):
+        return self.totals()[0]
 
     def totals(self):
         """(loops, host_reads, attempts, rejected) as Python ints."""
-        return (self.loops, self.host_reads,
-                0 if self.attempts is None else int(self.attempts),
-                0 if self.rejected is None else int(self.rejected))
+        loops, attempts, rejected = ([0, 0, 0] if self.counts is None
+                                     else self.counts.tolist())
+        return loops, self.host_reads, attempts, rejected
 
 
 # set to a SubstepStats to have the stepper count into it (chip_smoke.py
@@ -153,91 +170,21 @@ def rk45_step_carried_full(cfg, params, s, v, h0, f1, st1, active=None, c0=None)
     what is returned for them means nothing.  The tracer passes the rays
     that are still live, whose results alone it keeps, so that rays which
     have stopped do not hold the loop open.
+
+    The pieces (``substep_context``, ``substep_start``, ``substep_live``,
+    ``substep_pass``, ``substep_end``) are what the graphed tracer
+    captures (tracing/graphed.py): a pass in which no ray is live leaves
+    the carry as it was, bit for bit, so running more passes than the loop
+    needs changes nothing.
     """
-    B = v.shape[0]
-    dev, dt = v.device, v.dtype
-    ds = params.ode.ds
-    sout = s + ds
-    rel, ab = params.ode.rel_err, params.ode.abs_err
-
-    def f(ss, vv):
-        return rhs_mod.eqn_ray(cfg, params, ss, vv)
-
-    def f_check(ss, vv):
-        return rhs_mod.eqn_ray_and_check(cfg, params, ss, vv)
-
-    h_min = ds.abs() * 1e-12
-    # "reached sout" tolerance: below ~eps*|sout| the update t += h would
-    # round away and the loop could spin until the substep budget dies
-    done_tol = ds.abs() * 1e-10
-    total_error = torch.full((B,), int(StopCode.ODE_TOTAL_ERROR), dtype=torch.int32,
-                             device=dev)
-
-    comp = c0 is not None
-
-    def cond(carry):
-        t, status, n_sub = carry[0], carry[-2], carry[-1]
-        live = (sout - t > done_tol) & (status == 0) & (n_sub < cfg.max_substeps)
-        return live if active is None else live & active
-
-    def body(carry, live):
-        t, vv, h, k1, k1_st, resid, chk = carry[:7]
-        status, n_sub = carry[-2:]
-        # Step sizes are non-differentiated control state: the adjoint of
-        # an adaptive integrator is the discrete adjoint of the frozen
-        # accepted-substep sequence.  detach() cuts the whole controller
-        # chain (err -> err_ratio -> factor -> h) out of the backward
-        # pass; the primal values are unchanged.
-        h_try = torch.minimum(h, sout - t).detach()
-        v5, dv5, err, rhs_status, k7, k7_st, resid5, chk5 = _dopri_step(
-            f, f_check, t, vv, h_try, k1, k1_st)
-
-        tol = ab + rel * torch.maximum(vv.abs(), v5.abs())
-        err_ratio = (err.abs() / tol).amax(dim=-1)
-        accept = (err_ratio <= 1.0) & (rhs_status == 0)
-        if stats is not None:
-            stats.add(live, accept)
-
-        acc = accept[:, None]
-        t_new = torch.where(accept, t + h_try, t)
-        v_new = torch.where(acc, v5, vv)
-        if comp:
-            # the TwoSum's primary sum is v5 itself, bit for bit
-            cc_new = torch.where(acc, two_sum_add(vv, carry[7], dv5)[1], carry[7])
-        k1_new = torch.where(acc, k7, k1)
-        k1_st_new = torch.where(accept, k7_st, k1_st)
-        resid_new = torch.where(accept, resid5, resid)
-        chk_new = torch.where(accept, chk5, chk)
-
-        safe_ratio = err_ratio.clamp_min(constants.SAFE_TINY)
-        factor = (_SAFETY * safe_ratio ** (-0.2)).clamp(_MIN_FACTOR, _MAX_FACTOR)
-        h_new = torch.maximum(h_try * factor, h_min).detach()
-
-        status = torch.where(rhs_status != 0, rhs_status, status)
-        status = torch.where((~accept) & (h_try <= h_min) & (status == 0),
-                             total_error, status)
-        return (t_new, v_new, h_new, k1_new, k1_st_new, resid_new, chk_new,
-                *((cc_new,) if comp else ()), status, n_sub + 1)
-
-    def masked(live, old, new):
-        """Per ray: the new carry where its condition held, else the old."""
-        return tuple(torch.where(live[:, None] if a.dim() == 2 else live, b, a)
-                     for a, b in zip(old, new))
-
-    zero_i = torch.zeros((B,), dtype=torch.int32, device=dev)
-    t0 = torch.zeros((B,), dtype=dt, device=dev) + s
-    h_start = torch.minimum(torch.maximum(h0, h_min), ds.abs())
-    carry = (t0, v, h_start, f1, st1, torch.zeros((B,), dtype=dt, device=dev),
-             zero_i, *((c0,) if comp else ()), zero_i, zero_i)
+    ctx = substep_context(params, s, v.shape[0], v.device, active)
+    carry = substep_start(params, ctx, s, v, h0, f1, st1, c0)
     n_scan = int(cfg.sg_scan_substeps)
     if n_scan > 0:
         # a fixed budget of masked substeps, unrolled; the check after the
         # loop still fires if a ray needed more
         for _ in range(n_scan):
-            live = cond(carry)
-            carry = masked(live, carry, body(carry, live))
-            if stats is not None:
-                stats.loops += 1
+            carry = substep_pass(cfg, params, ctx, carry, substep_live(cfg, ctx, carry))
     else:
         if needs_grad(params, v, f1):
             raise ValueError(
@@ -246,16 +193,125 @@ def rk45_step_carried_full(cfg, params, s, v, h0, f1, st1, active=None, c0=None)
                 "the substep loop runs until every ray is done and is not "
                 "differentiated")
         while True:
-            live = cond(carry)
+            live = substep_live(cfg, ctx, carry)
             if stats is not None:
                 stats.host_reads += 1
             if not bool(live.any()):
                 break
-            carry = masked(live, carry, body(carry, live))
-            if stats is not None:
-                stats.loops += 1
+            carry = substep_pass(cfg, params, ctx, carry, live)
+    return substep_end(ctx, carry)
+
+
+class SubstepContext(NamedTuple):
+    """What every pass of one outer step's substep loop reads besides its
+    carry: the end of the step, the step-size floor, the "reached sout"
+    tolerance, a (B,) ODE_TOTAL_ERROR code and the rays that may step."""
+
+    sout: Any
+    h_min: Any
+    done_tol: Any
+    total_error: Any
+    active: Any
+
+
+def substep_context(params, s, n_rays, device, active=None) -> SubstepContext:
+    ds = params.ode.ds
+    # "reached sout" tolerance: below ~eps*|sout| the update t += h would
+    # round away and the loop could spin until the substep budget dies
+    return SubstepContext(
+        sout=s + ds, h_min=ds.abs() * 1e-12, done_tol=ds.abs() * 1e-10,
+        total_error=torch.full((n_rays,), int(StopCode.ODE_TOTAL_ERROR), dtype=torch.int32,
+                               device=device),
+        active=active)
+
+
+# the loop's carry with the compensated slot: (t, v, h, k1, k1_status,
+# resid, check_status, c, status, n_sub)
+_COMP_CARRY = 10
+
+
+def substep_start(params, ctx, s, v, h0, f1, st1, c0=None):
+    """The loop's carry at the start of the outer step: (t, v, h, k1,
+    k1_status, resid, check_status, [c], status, n_sub)."""
+    B = v.shape[0]
+    dev, dt = v.device, v.dtype
+    zero_i = torch.zeros((B,), dtype=torch.int32, device=dev)
+    t0 = torch.zeros((B,), dtype=dt, device=dev) + s
+    h_start = torch.minimum(torch.maximum(h0, ctx.h_min), params.ode.ds.abs())
+    return (t0, v, h_start, f1, st1, torch.zeros((B,), dtype=dt, device=dev),
+            zero_i, *((c0,) if c0 is not None else ()), zero_i, zero_i)
+
+
+def substep_live(cfg, ctx, carry):
+    """(B,) bool: the rays that take a substep in the next pass."""
+    t, status, n_sub = carry[0], carry[-2], carry[-1]
+    live = (ctx.sout - t > ctx.done_tol) & (status == 0) & (n_sub < cfg.max_substeps)
+    return live if ctx.active is None else live & ctx.active
+
+
+def substep_pass(cfg, params, ctx, carry, live):
+    """One lockstep pass: every ray in ``live`` takes a trial substep; the
+    others keep their whole carry."""
+    rel, ab = params.ode.rel_err, params.ode.abs_err
+    comp = len(carry) == _COMP_CARRY
+    sout, h_min = ctx.sout, ctx.h_min
+    t, vv, h, k1, k1_st, resid, chk = carry[:7]
+    status, n_sub = carry[-2:]
+
+    def f(ss, x):
+        return rhs_mod.eqn_ray(cfg, params, ss, x)
+
+    def f_check(ss, x):
+        return rhs_mod.eqn_ray_and_check(cfg, params, ss, x)
+
+    # Step sizes are non-differentiated control state: the adjoint of
+    # an adaptive integrator is the discrete adjoint of the frozen
+    # accepted-substep sequence.  detach() cuts the whole controller
+    # chain (err -> err_ratio -> factor -> h) out of the backward
+    # pass; the primal values are unchanged.
+    h_try = torch.minimum(h, sout - t).detach()
+    v5, dv5, err, rhs_status, k7, k7_st, resid5, chk5 = _dopri_step(
+        f, f_check, t, vv, h_try, k1, k1_st)
+
+    tol = ab + rel * torch.maximum(vv.abs(), v5.abs())
+    err_ratio = (err.abs() / tol).amax(dim=-1)
+    accept = (err_ratio <= 1.0) & (rhs_status == 0)
+    if stats is not None:
+        stats.add(live, accept)
+
+    acc = accept[:, None]
+    t_new = torch.where(accept, t + h_try, t)
+    v_new = torch.where(acc, v5, vv)
+    if comp:
+        # the TwoSum's primary sum is v5 itself, bit for bit
+        cc_new = torch.where(acc, two_sum_add(vv, carry[7], dv5)[1], carry[7])
+    k1_new = torch.where(acc, k7, k1)
+    k1_st_new = torch.where(accept, k7_st, k1_st)
+    resid_new = torch.where(accept, resid5, resid)
+    chk_new = torch.where(accept, chk5, chk)
+
+    safe_ratio = err_ratio.clamp_min(constants.SAFE_TINY)
+    factor = (_SAFETY * safe_ratio ** (-0.2)).clamp(_MIN_FACTOR, _MAX_FACTOR)
+    h_new = torch.maximum(h_try * factor, h_min).detach()
+
+    status_new = torch.where(rhs_status != 0, rhs_status, status)
+    status_new = torch.where((~accept) & (h_try <= h_min) & (status_new == 0),
+                             ctx.total_error, status_new)
+    new = (t_new, v_new, h_new, k1_new, k1_st_new, resid_new, chk_new,
+           *((cc_new,) if comp else ()), status_new, n_sub + 1)
+    # per ray: the new carry where its condition held, else the old
+    return tuple(torch.where(live[:, None] if a.dim() == 2 else live, b, a)
+                 for a, b in zip(carry, new))
+
+
+def substep_end(ctx, carry):
+    """The step's outputs from the loop's final carry (see
+    ``rk45_step_carried_full``), with a trailing c_new when the carry has
+    the compensated slot."""
     t_f, v_f, h_f, k_f, k_st_f, resid_f, chk_f = carry[:7]
     status = carry[-2]
     # substep budget exhausted without reaching sout: tolerance failure
-    status = torch.where((status == 0) & (sout - t_f > done_tol), total_error, status)
-    return (v_f, status, h_f, k_f, k_st_f, resid_f, chk_f, *((carry[7],) if comp else ()))
+    status = torch.where((status == 0) & (ctx.sout - t_f > ctx.done_tol), ctx.total_error,
+                         status)
+    return (v_f, status, h_f, k_f, k_st_f, resid_f, chk_f,
+            *((carry[7],) if len(carry) == _COMP_CARRY else ()))

@@ -16,7 +16,9 @@ tracing/rk45.py); autograd differentiates it with respect to every
 floating Params leaf, v0 and pwr_wt (the adjoint), with each step
 rematerialized on the backward pass when ``cfg.remat_steps`` is on.
 ``trace_rays`` is the top-level dispatch; ``route`` says from the config
-alone which of the two tracers a run takes.
+alone which of the three tracers a run takes: the slab kernel, the
+graphed tracer (tracing/graphed.py, which replays this module's ``step``
+as a CUDA graph) or ``trace_batch``.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.utils.checkpoint
 
-from rays_tpu_torch.core.types import needs_grad
+from rays_tpu_torch.core.types import has_tangent, needs_grad
 from rays_tpu_torch.models import base
 from rays_tpu_torch.tracing import rhs as rhs_mod
 from rays_tpu_torch.tracing import compensated, rk4, rk45
@@ -86,19 +88,24 @@ def route(cfg, needs_grad, device) -> str:
     """Which tracer a run takes, decided from the config, whether
     gradients are asked for, and the device of its tensors, before
     anything is launched: ``"kernel"`` (the slab RK4 CUDA kernel,
-    tracing/fused_slab.py) or ``"plain"`` (``trace_batch`` on the tensors'
+    tracing/fused_slab.py), ``"graph"`` (``trace_batch``'s outer step
+    captured once per configuration as a CUDA graph and replayed,
+    tracing/graphed.py) or ``"plain"`` (``trace_batch`` on the tensors'
     own device).
 
-    On a CUDA device every config that ``fused_slab.supported`` accepts
-    takes the kernel, unless gradients are asked for (the kernel has no
-    backward; the JAX package's adjoint, too, is reverse mode through its
-    plain scan).  Every other config the port supports (the adaptive
-    stepper, the Solovev tokamak, the spline geometries, the
-    equilibrium-gradient slots, the autodiff derivatives, a model of the
-    caller's own from ``base.register_eq_model``, even under a built-in
-    name) runs ``trace_batch`` on the card, as the JAX package runs them
-    as plain XLA operations.  This is a choice, not a
-    fallback: a kernel that fails to build or launch raises."""
+    On a CUDA device without gradients every config that
+    ``fused_slab.supported`` accepts takes the kernel, and every other
+    config of the port's own (the adaptive stepper, the Solovev tokamak,
+    the spline geometries, the equilibrium-gradient slots, the autodiff
+    derivatives, the compensated carry) the graph: the counterpart of the
+    JAX package's one ``jax.jit`` per config.  Gradients take the plain
+    route (the kernel has no backward and a graph holds no autograd
+    history; the JAX package's adjoint, too, is reverse mode through its
+    plain scan), as do the CPU and a model of the caller's own from
+    ``base.register_eq_model``, even under a built-in name: the port
+    cannot promise that the caller's code is safe to capture.  This is a
+    choice, not a fallback: a kernel that fails to build or launch, or a
+    capture or replay that fails, raises."""
     check_supported(cfg)
     kind = torch.device(device).type
     if kind not in ("cpu", "cuda"):
@@ -107,17 +114,142 @@ def route(cfg, needs_grad, device) -> str:
         return "plain"
     from rays_tpu_torch.tracing import fused_slab
 
-    return "kernel" if fused_slab.supported(cfg) else "plain"
+    return "kernel" if fused_slab.supported(cfg) else "graph"
 
 
 def trace_rays(cfg, params, v0, status0, pwr_wt) -> RayResults:
     """Top-level tracer dispatch (reference trace_rays,
     ray_tracing.f90:1): the tracer that ``route`` names."""
-    if route(cfg, needs_grad(params, v0), v0.device) == "plain":
+    # forward-mode tangents are derivatives asked for too
+    which = route(cfg, needs_grad(params, v0) or has_tangent(params, v0), v0.device)
+    if which == "plain":
         return trace_batch(cfg, params, v0, status0, pwr_wt)
+    if which == "graph":
+        from rays_tpu_torch.tracing import graphed
+
+        return graphed.trace_batch_graphed(cfg, params, v0, status0, pwr_wt)
     from rays_tpu_torch.tracing import fused_slab
 
     return fused_slab.trace_batch_fused(cfg, params, v0, status0, pwr_wt)
+
+
+def step_start(params, k, status):
+    """The head of outer step ``k`` (a 0-d float tensor: ``k * ds`` is
+    then fl(k ds), as with a Python int): (s, sout, status, active) with
+    the rays past s_max flagged (ray_tracing.f90:128-147)."""
+    ds = params.ode.ds
+    s = k * ds
+    sout = (k + 1) * ds
+    active = status == 0
+    status = torch.where(active & (sout > params.ode.s_max),
+                         torch.full_like(status, int(StopCode.SOUT_GT_SMAX)), status)
+    return s, sout, status, status == 0
+
+
+def rk4_solve(cfg, params, s, sout, v, f1, st1, cvec=None):
+    """The fixed-step solver's part of an outer step, in the form of
+    ``rk45.rk45_step_carried_full``'s outputs (h_new None): the RK4 step
+    and the endpoint RHS and check_save from one evaluation."""
+    if cvec is not None:
+        dv, solver_st = rk4.rk4_step_carried_delta(cfg, params, s, v, f1, st1)
+        v_new, c_new = compensated.two_sum_add(v, cvec, dv)
+    else:
+        v_new, solver_st = rk4.rk4_step_carried(cfg, params, s, v, f1, st1)
+    f_new, rhs_st_new, resid, check_st = rhs_mod.eqn_ray_and_check(cfg, params, sout, v_new)
+    return (v_new, solver_st, None, f_new, rhs_st_new, resid, check_st,
+            *((c_new,) if cvec is not None else ()))
+
+
+def step_end(cfg, carry, status, active, out):
+    """The tail of an outer step: the solver's outputs ``out`` (see
+    ``rk4_solve``) accepted where they pass the stops, into the carry
+    (v, f1, st1, hstate, status, nstep, end_res, max_res, [cvec]).
+    Returns (row, res_row, *new carry): the trajectory row and residual of
+    the step, zero where the ray did not step."""
+    v, f1, st1, hstate, _, nstep, end_res, max_res = carry[:8]
+    comp = cfg.compensated_sum
+    v_new, solver_st, h_new, f_new, rhs_st_new, resid, check_st = out[:7]
+    status = torch.where(active & (solver_st != 0), solver_st, status)
+    accepted = active & (solver_st == 0)
+    status = torch.where(accepted & (check_st != 0), check_st, status)
+    ok = accepted & (check_st == 0)
+
+    okc = ok[:, None]
+    if comp:
+        cvec = torch.where(okc, out[-1], carry[8])
+    v = torch.where(okc, v_new, v)
+    # the endpoint RHS becomes the next step's k1; a frozen ray keeps
+    # the stage matching its frozen state
+    f1 = torch.where(okc, f_new, f1)
+    st1 = torch.where(ok, rhs_st_new, st1)
+    if h_new is not None:
+        # the converged step size persists across outer steps
+        hstate = torch.where(ok, h_new, hstate)
+    nstep = nstep + ok.to(torch.int32)
+    end_res = torch.where(ok, resid, end_res)
+    max_res = torch.where(ok, torch.maximum(max_res, resid), max_res)
+    row = torch.where(okc, v, 0.0)
+    res_row = torch.where(ok, resid, 0.0)
+    return (row, res_row, v, f1, st1, hstate, status, nstep, end_res, max_res,
+            *((cvec,) if comp else ()))
+
+
+def step(cfg, params, k, *carry):
+    """One outer step of ``trace_batch`` at step index ``k`` (0-d float
+    tensor) on the carry (v, f1, st1, hstate, status, nstep, end_res,
+    max_res, [cvec]); returns (row, res_row, *new carry).  The graphed
+    tracer captures this same function."""
+    v, f1, st1, hstate, status = carry[:5]
+    cvec = carry[8] if cfg.compensated_sum else None
+    s, sout, status, active = step_start(params, k, status)
+    if cfg.ode_solver_name == "SG_ODE":
+        out = rk45.rk45_step_carried_full(cfg, params, s, v, hstate, f1, st1, active, cvec)
+    else:
+        out = rk4_solve(cfg, params, s, sout, v, f1, st1, cvec)
+    return step_end(cfg, carry, status, active, out)
+
+
+def initial_carry(cfg, params, v0, status0):
+    """The carry before the first outer step (v, f1, st1, hstate, status,
+    nstep, end_res, max_res, [cvec]): the initial validity check
+    (ray_tracing.f90:100-112), whose evaluation seeds the first step's k1;
+    the initial residual is recorded as 0 ("assume initial k solves the
+    dispersion relation", ray_tracing.f90:93)."""
+    B = v0.shape[0]
+    dev, dt = v0.device, v0.dtype
+    zero_s = torch.zeros((), dtype=dt, device=dev)
+    f1, st1, _, chk0 = rhs_mod.eqn_ray_and_check(cfg, params, zero_s, v0)
+    status = torch.where(status0 != 0, status0.to(torch.int32), chk0)
+    hstate = torch.zeros((B,), dtype=dt, device=dev) + params.ode.ds
+    return (v0, f1, st1, hstate, status, torch.zeros((B,), dtype=torch.int32, device=dev),
+            torch.zeros((B,), dtype=dt, device=dev), torch.zeros((B,), dtype=dt, device=dev),
+            *((torch.zeros_like(v0),) if cfg.compensated_sum else ()))
+
+
+def step_index(k, v0):
+    """Outer step ``k`` as the 0-d float tensor that ``step`` takes."""
+    return torch.full((), k, dtype=v0.dtype, device=v0.device)
+
+
+def results(cfg, carry, v0, pwr_wt, ray_vec, residual) -> RayResults:
+    """RayResults from the final carry; rays still live exhausted the step
+    budget (ray_tracing.f90:150-172)."""
+    v, _, _, _, status, nstep, end_res, max_res = carry[:8]
+    status = torch.where(status == 0, torch.full_like(status, int(StopCode.NSTEP_MAX)),
+                         status)
+    return RayResults(
+        ray_vec=ray_vec,
+        residual=residual,
+        npoints=1 + nstep,
+        stop_flag=status,
+        initial_ray_power=pwr_wt,
+        end_residuals=end_res,
+        max_residuals=max_res,
+        end_ray_parameter=v[:, 6],
+        start_ray_vec=v0,
+        end_ray_vec=v,
+        end_ray_comp=carry[8] if cfg.compensated_sum else None,
+    )
 
 
 def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
@@ -133,113 +265,38 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
     Under ``cfg.compensated_sum`` every accepted increment is TwoSummed
     into the state (tracing/compensated.py): the state is bit for bit the
     plain run's, and the rounding errors gather in a carried vector that
-    ends as ``end_ray_comp``."""
+    ends as ``end_ray_comp``.
+
+    This is the eager twin of the graphed tracer (tracing/graphed.py),
+    which replays the same ``step``; called directly it runs eagerly on
+    any device."""
     check_supported(cfg)
-    sg = cfg.ode_solver_name == "SG_ODE"
-    comp = cfg.compensated_sum
-    ds, s_max = params.ode.ds, params.ode.s_max
     B, nv = v0.shape
     dev, dt = v0.device, v0.dtype
-
-    # initial validity check (ray_tracing.f90:100-112); the initial residual
-    # is recorded as 0 ("assume initial k solves the dispersion relation",
-    # ray_tracing.f90:93).  The same evaluation seeds the first step's k1.
-    zero_s = torch.zeros((), dtype=dt, device=dev)
-    f1, st1, _, chk0 = rhs_mod.eqn_ray_and_check(cfg, params, zero_s, v0)
-    status = torch.where(status0 != 0, status0.to(torch.int32), chk0)
-
-    nstep = torch.zeros((B,), dtype=torch.int32, device=dev)
-    end_res = torch.zeros((B,), dtype=dt, device=dev)
-    max_res = torch.zeros((B,), dtype=dt, device=dev)
-    sout_gt = torch.full_like(status, int(StopCode.SOUT_GT_SMAX))
-
-    def step(k, v, f1, st1, hstate, status, nstep, end_res, max_res, cvec=None):
-        s = k * ds
-        sout = (k + 1) * ds
-
-        active = status == 0
-        status = torch.where(active & (sout > s_max), sout_gt, status)
-        active = status == 0
-
-        if sg:
-            out = rk45.rk45_step_carried_full(cfg, params, s, v, hstate, f1, st1,
-                                              active, cvec)
-            v_new, solver_st, h_new, f_new, rhs_st_new, resid, check_st = out[:7]
-            c_new = out[-1]     # the carry, when cvec was given
-        else:
-            if comp:
-                dv, solver_st = rk4.rk4_step_carried_delta(cfg, params, s, v, f1, st1)
-                v_new, c_new = compensated.two_sum_add(v, cvec, dv)
-            else:
-                v_new, solver_st = rk4.rk4_step_carried(cfg, params, s, v, f1, st1)
-            f_new, rhs_st_new, resid, check_st = rhs_mod.eqn_ray_and_check(
-                cfg, params, sout, v_new)
-        status = torch.where(active & (solver_st != 0), solver_st, status)
-        accepted = active & (solver_st == 0)
-        status = torch.where(accepted & (check_st != 0), check_st, status)
-        ok = accepted & (check_st == 0)
-
-        okc = ok[:, None]
-        if comp:
-            cvec = torch.where(okc, c_new, cvec)
-        v = torch.where(okc, v_new, v)
-        # the endpoint RHS becomes the next step's k1; a frozen ray keeps
-        # the stage matching its frozen state
-        f1 = torch.where(okc, f_new, f1)
-        st1 = torch.where(ok, rhs_st_new, st1)
-        if sg:
-            # the converged step size persists across outer steps
-            hstate = torch.where(ok, h_new, hstate)
-        nstep = nstep + ok.to(torch.int32)
-        end_res = torch.where(ok, resid, end_res)
-        max_res = torch.where(ok, torch.maximum(max_res, resid), max_res)
-        row = torch.where(okc, v, 0.0)
-        res_row = torch.where(ok, resid, 0.0)
-        return (row, res_row, v, f1, st1, hstate, status, nstep, end_res, max_res,
-                *((cvec,) if comp else ()))
+    carry = initial_carry(cfg, params, v0, status0)
 
     # the analog of jax.checkpoint(body) (JAX trace.py:233-238): the
     # backward pass keeps each step's inputs and recomputes its insides
     remat = cfg.remat_steps and needs_grad(params, v0)
-    hstate = torch.zeros((B,), dtype=dt, device=dev) + ds
-    carry = (v0, f1, st1, hstate, status, nstep, end_res, max_res,
-             *((torch.zeros_like(v0),) if comp else ()))
     # trajectory rows are stacked once at the end: writing them into a
     # preallocated buffer would chain one whole-buffer copy per step into
     # the backward pass
     rows, res_rows = [v0], [torch.zeros((B,), dtype=dt, device=dev)]
     for k in range(cfg.nstep_max):
+        body = functools.partial(step, cfg, params, step_index(k, v0))
         if remat:
-            out = torch.utils.checkpoint.checkpoint(
-                functools.partial(step, k), *carry, use_reentrant=False)
+            out = torch.utils.checkpoint.checkpoint(body, *carry, use_reentrant=False)
         else:
-            out = step(k, *carry)
+            out = body(*carry)
         carry = out[2:]
         if cfg.save_trajectory:
             rows.append(out[0])
             res_rows.append(out[1])
-    v, _, _, _, status, nstep, end_res, max_res = carry[:8]
 
-    # still-live rays exhausted the step budget (ray_tracing.f90:150-172)
-    status = torch.where(status == 0, torch.full_like(status, int(StopCode.NSTEP_MAX)),
-                         status)
     if cfg.save_trajectory:
         ray_vec = torch.stack(rows, dim=1)
         residual = torch.stack(res_rows, dim=1)
     else:
         ray_vec = torch.zeros((B, 1, nv), dtype=dt, device=dev)
         residual = torch.zeros((B, 1), dtype=dt, device=dev)
-
-    return RayResults(
-        ray_vec=ray_vec,
-        residual=residual,
-        npoints=1 + nstep,
-        stop_flag=status,
-        initial_ray_power=pwr_wt,
-        end_residuals=end_res,
-        max_residuals=max_res,
-        end_ray_parameter=v[:, 6],
-        start_ray_vec=v0,
-        end_ray_vec=v,
-        end_ray_comp=carry[8] if comp else None,
-    )
+    return results(cfg, carry, v0, pwr_wt, ray_vec, residual)

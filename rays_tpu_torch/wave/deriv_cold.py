@@ -1,6 +1,8 @@
 """Closed-form cold-plasma D-derivatives, the production derivative path
 (``rays_tpu.wave.deriv_cold``; reference deriv_cold.f90:40-171), batched
-over rays.
+over rays.  The tiny matrix-vector products are broadcast multiply-reduce,
+as in the JAX package: as ``torch.matmul`` each would be a library
+batched gemv, the slowest kernel of a step on the card.
 
 This chain — slab fields, ``models.base.equilibrium``, this module and
 ``tracing.rhs`` — is the plain twin of the CUDA kernel in
@@ -31,7 +33,7 @@ def deriv_cold(eq, nvec, omgrf, k0):
     dn12dk = 2.0 * nperp / k0
 
     # spatial derivatives (deriv_cold.f90:53-67)
-    dn3dx = torch.matmul(eq.gradbunit, nvec[:, :, None])[:, :, 0]    # (B,3)
+    dn3dx = (eq.gradbunit * nvec[:, None, :]).sum(-1)                 # (B,3)
     dn12dx = -2.0 * n3[:, None] * dn3dx
     dadx = alpha[:, :, None] * eq.gradns / eq.ns.clamp_min(tiny)[:, :, None]
     dgdx = gamma[:, :, None] * (
@@ -69,12 +71,12 @@ def deriv_cold(eq, nvec, omgrf, k0):
     # dD/d(gamma) via leave-two-out kernels (deriv_cold.f90:114-154)
     gp, gm = stix.leave_two_out_products(gamma)
     gpm = gp * gm
-    a_row = alpha[:, None, :]                      # (B,1,S) @ (B,S,S)
+    a_col = alpha[:, :, None]                      # sum over the first species axis
     dtdg = 2.0 * gamma * duda
-    dudg = torch.matmul(a_row, gpm)[:, 0, :]
+    dudg = (a_col * gpm).sum(1)
     dudg = dtdg + 2.0 * gamma * (dudg + alpha * duda)
-    dq1dg = torch.matmul(a_row, gp)[:, 0, :] - alpha * dq1da
-    dq2dg = -torch.matmul(a_row, gm)[:, 0, :] + alpha * dq2da
+    dq1dg = (a_col * gp).sum(1) - alpha * dq1da
+    dq2dg = -(a_col * gm).sum(1) + alpha * dq2da
     dqdg = 2.0 * dudg - dtdg + dq1dg * q2[:, None] + q1[:, None] * dq2dg
     dddg = (
         dtdg * p_ * n3_**4

@@ -32,6 +32,18 @@ def rlsdp(alpha, gamma):
     return S, D, P, R, L
 
 
+def product(x):
+    """The product over the last axis as a chain of multiplies, (...,).
+    Autograd's formula for ``prod`` reads the host (it looks for zero
+    factors), which a CUDA graph cannot capture; the autodiff derivatives
+    (tracing/rhs.py) differentiate these products inside the graphed step,
+    and a chain's backward is plain multiplies."""
+    out = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        out = out * x[..., i]
+    return out
+
+
 def leave_one_out_products(gamma):
     """(dq1da, dq2da), each (B, S): dq1da[:, s] = prod_{i!=s}(1+gamma_i),
     dq2da likewise with (1-gamma_i) (deriv_cold.f90:83-91)."""
@@ -40,7 +52,7 @@ def leave_one_out_products(gamma):
     one = torch.ones((), dtype=gamma.dtype, device=gamma.device)
     mp = torch.where(eye, one, (1.0 + gamma)[:, None, :])
     mm = torch.where(eye, one, (1.0 - gamma)[:, None, :])
-    return mp.prod(-1), mm.prod(-1)
+    return product(mp), product(mm)
 
 
 def leave_two_out_products(gamma):
@@ -59,7 +71,7 @@ def leave_two_out_products(gamma):
 def poly_pieces(alpha, gamma):
     """(p, t, u, q, q1, q2), each (B,) (deriv_cold.f90:77-101)."""
     dq1da, dq2da = leave_one_out_products(gamma)
-    t = ((1.0 + gamma) * (1.0 - gamma)).prod(-1)
+    t = product((1.0 + gamma) * (1.0 - gamma))
     q1 = (alpha * dq1da).sum(-1)
     q2 = (alpha * dq2da).sum(-1)
     u = t - (alpha * dq1da * dq2da).sum(-1)

@@ -528,7 +528,7 @@ def test_autodiff_trace_and_its_gradient():
 
 @pytest.mark.parametrize("name,on_cuda", [("SLAB_ECH_90GHZ", "kernel"),
                                           ("SLAB_ECH_DAMPED", "kernel"),
-                                          ("SOLOVEV_ECH_90GHZ", "plain")])
+                                          ("SOLOVEV_ECH_90GHZ", "graph")])
 def test_route_of_every_example(name, on_cuda):
     """Every example on both devices, with and without gradients; the
     choice is made from the config alone."""
@@ -539,16 +539,16 @@ def test_route_of_every_example(name, on_cuda):
     for grad in (False, True):
         assert ttrace.route(cfg, grad, "cpu") == ttrace.route(cfg, grad, torch.device("cpu")) \
             == "plain"
-    # off the kernel's gate the slab takes the plain route on the card
+    # off the kernel's gate the slab takes the graph route on the card
     for change in (dict(ode_solver_name="SG_ODE"), dict(integrate_eq_gradients=True),
                    dict(ray_deriv_name="autodiff")):
-        assert ttrace.route(dataclasses.replace(cfg, **change), False, "cuda") == "plain"
-    # the spline geometries have no kernel: plain on every device; a model
-    # the port does not know raises on every device
+        assert ttrace.route(dataclasses.replace(cfg, **change), False, "cuda") == "graph"
+    # the spline geometries have no kernel: the graph on the card, plain on
+    # the CPU; a model the port does not know raises on every device
     for dev in ("cpu", "cuda"):
         for model in ("axisym_toroid", "multiple_mirror"):
             spline = dataclasses.replace(cfg, equilib_model=model)
-            assert ttrace.route(spline, False, dev) == "plain"
+            assert ttrace.route(spline, False, dev) == ("graph" if dev == "cuda" else "plain")
             assert not fused_slab.supported(spline)
         with pytest.raises(NotImplementedError, match="stellarator"):
             ttrace.route(dataclasses.replace(cfg, equilib_model="stellarator"), False, dev)

@@ -405,7 +405,8 @@ def _trace_both(text, **cfg_changes):
         jparams, v0, st, pwr)
     _, _, tv0, tst, tpw = trun.setup_from(pcfg, pparams, "cpu", torch.float64)
     tp.assert_rows_close(tv0, v0, 1e-13, "v0")
-    assert ttrace.route(pcfg, False, "cuda") == ttrace.route(pcfg, False, "cpu") == "plain"
+    assert ttrace.route(pcfg, False, "cuda") == "graph"
+    assert ttrace.route(pcfg, False, "cpu") == "plain"
     assert not fused_slab.supported(pcfg)
     before = fused_slab.LAUNCHES
     got = ttrace.trace_rays(pcfg, pparams, tv0, tst, tpw)

@@ -122,15 +122,18 @@ def test_port_matches_jax_under_the_mode(solver):
 
 
 def test_compensated_slab_takes_the_plain_route_on_cuda():
+    """The kernel's gate refuses the carry: on the card the compensated
+    slab takes the graphed tracer (its name is older than that route),
+    on the CPU the plain one."""
     cfg, params, v0, st, pwr = tex.setup_example(device="cpu", dtype=torch.float32)
     comp = dataclasses.replace(cfg, compensated_sum=True)
     assert fused_slab.supported(cfg) and route(cfg, False, "cuda") == "kernel"
     assert not fused_slab.supported(comp)
-    assert route(comp, False, "cuda") == route(comp, False, torch.device("cuda", 0)) == "plain"
+    assert route(comp, False, "cuda") == route(comp, False, torch.device("cuda", 0)) == "graph"
     assert route(comp, False, "cpu") == "plain"
     # and the damped slab likewise
     dcfg = tex.setup_example(tex.SLAB_ECH_DAMPED, device="cpu")[0]
-    assert route(dataclasses.replace(dcfg, compensated_sum=True), False, "cuda") == "plain"
+    assert route(dataclasses.replace(dcfg, compensated_sum=True), False, "cuda") == "graph"
 
 
 def test_mode_under_gradients_and_trajectories():

@@ -1,5 +1,5 @@
 """What one outer step costs on the H100, path by path: the counterpart of
-scripts/step_profile.py.
+scripts/step_profile.py, for the eager tracer and the graphed one.
 
 1. What one step needs.  For the slab RK4 kernel (B1): its operations per
    ray step by kind, counted by the kernel body itself on the example
@@ -13,8 +13,13 @@ scripts/step_profile.py.
    outer steps less a trace of none, at ``--rays`` rays.  CUDA kernels per
    outer step beside the census, device time per step, the device's busy
    share of the window, the quantiles of kernel duration, the 8 kernels
-   with the most time.  The same for B1 (one launch per call) at 256 rays
-   and at ``--rays``.
+   with the most time.  Each path that the graph route takes (the slab
+   under RK4 with the equilibrium-gradient slots, since B1 takes the plain
+   slab, and the four others) also through ``trace_rays``'s graphed tracer
+   (tracing/graphed.py): the same window of replays, its host reads and
+   substep passes per step, and the one-off capture time of the
+   configuration.  The same for B1 (one launch per call) at 256 rays and at
+   ``--rays``.
 3. Fixed cost per call against sustained rate: ``trace_rays`` through B1
    at 32,768 and 131,072 rays, f32 and f64, on the host's clock: the best
    of 3 single calls against the best of 3 runs of 5 calls back to back,
@@ -33,6 +38,7 @@ import dataclasses
 import os
 import sys
 import tempfile
+import time
 
 import torch
 
@@ -41,7 +47,7 @@ sys.path.insert(0, ROOT)
 
 from rays_tpu_torch import examples, run as runner  # noqa: E402
 from rays_tpu_torch.core.types import tree_to  # noqa: E402
-from rays_tpu_torch.tracing import fused_slab  # noqa: E402
+from rays_tpu_torch.tracing import fused_slab, graphed, rk45  # noqa: E402
 from rays_tpu_torch.tracing.trace import trace_batch, trace_rays  # noqa: E402
 from rays_tpu_torch.utils import measure, op_census, op_rates  # noqa: E402
 
@@ -51,7 +57,9 @@ STEPS = 16              # outer steps of a profiled window (10-20: the plain sla
 CALL_BATCHES = (32768, 131072)
 B1_SMALL = 256
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
-PATHS = ("slab_rk4", "slab_sg", "solovev_sg", "eqdsk_rk4", "mirror_rk4")
+PATHS = ("slab_rk4", "slab_rk4_eq_gradients", "slab_sg", "solovev_sg", "eqdsk_rk4",
+         "mirror_rk4")
+GRAPHED = PATHS[1:]     # the paths that trace_rays sends to the graphed tracer
 
 
 def _subdir(directory, name):
@@ -65,8 +73,11 @@ def plain_cases(device, n_rays, directory):
     kernel at ``n_rays`` rays (examples.replicate_rays), float64, summaries
     only; the EQDSK and mirror input files are written into ``directory``."""
     sg = examples.SLAB_ECH_90GHZ.replace("ode_solver_name='RK4_ODE'", "ode_solver_name='SG_ODE'")
+    eq_grad = examples.SLAB_ECH_90GHZ.replace("integrate_eq_gradients=.false.",
+                                              "integrate_eq_gradients=.true.")
     cases = {
         "slab_rk4": examples.setup_example(device=device),
+        "slab_rk4_eq_gradients": examples.setup_example(eq_grad, device=device),
         "slab_sg": examples.setup_example(sg, device=device),
         "solovev_sg": examples.setup_example(examples.SOLOVEV_ECH_90GHZ, device=device),
         "eqdsk_rk4": runner.setup(examples.write_eqdsk_toroid_example(
@@ -81,28 +92,60 @@ def plain_cases(device, n_rays, directory):
     return out
 
 
-def _window(case, steps, device):
-    """The device trace of ``trace_batch`` over ``steps`` outer steps."""
-    cfg, params, v, s, w = case
-    c = dataclasses.replace(cfg, nstep_max=steps)
-    return measure.profile(lambda: trace_batch(c, params, v, s, w), device)
+# every path that trace_rays sends to the graphed tracer: (case of
+# plain_cases or "slab_f32", Config changes)
+GRAPH_CASES = {
+    "slab_rk4_eq_gradients": ("slab_rk4_eq_gradients", {}),
+    "slab_rk4_autodiff": ("slab_rk4", dict(ray_deriv_name="autodiff")),
+    "slab_sg_fixed_budget": ("slab_sg", dict(sg_scan_substeps=2)),
+    "slab_sg_loop": ("slab_sg", {}),
+    "solovev_sg": ("solovev_sg", {}),
+    "solovev_rk4": ("solovev_sg", dict(ode_solver_name="RK4_ODE")),
+    "eqdsk_rk4": ("eqdsk_rk4", {}),
+    "mirror_damped_rk4": ("mirror_damped_rk4", {}),
+    "slab_compensated_f32": ("slab_f32", dict(compensated_sum=True)),
+}
+MIRROR_DAMPED = examples.MIRROR_ECH_56GHZ.replace("damping_model='no_damp'",
+                                                  "damping_model='damp_fund_ECH'")
 
 
-def step_window(case, steps, device):
+def graph_cases(device, n_rays, directory):
+    """{name: (cfg, params, v, status, pwr)} of GRAPH_CASES at ``n_rays``
+    rays, trajectories on; the spline files are written into
+    ``directory``."""
+    base = plain_cases(device, n_rays, directory)
+    cfg, params, v0, st, pwr = examples.setup_example(device=device, dtype=torch.float32)
+    base["slab_f32"] = (cfg, params, *examples.replicate_rays(v0, st, pwr, n_rays))
+    cfg, params, v0, st, pwr = runner.setup(examples.write_mirror_example(
+        _subdir(directory, "mirror_damped"), text=MIRROR_DAMPED), device=device)
+    base["mirror_damped_rk4"] = (cfg, params, *examples.replicate_rays(v0, st, pwr, n_rays))
+    out = {}
+    for name, (which, changes) in GRAPH_CASES.items():
+        cfg, *rest = base[which]
+        out[name] = (dataclasses.replace(cfg, save_trajectory=True, **changes), *rest)
+    return out
+
+
+def step_window(case, steps, device, tracer=trace_batch):
     """{kernels, copies, device_us, wall_us, profiled_wall_us per outer
-    step; busy share; quantiles; top kernels; profiled}: a window of
-    ``steps`` outer steps less one of none, after a warm-up.  The profiler
-    slows the host, so the wall per step is also taken without it, on the
-    host's clock, and the busy share is the device time over that wall."""
+    step; busy share; quantiles; top kernels; profiled; first_s and
+    again_s, the host seconds of the first and a later call of ``steps``
+    steps}: a window of ``steps`` outer steps of ``tracer`` less one of
+    none, after a warm-up of both (for the graphed tracer, their capture).
+    The profiler slows the host, so the wall per step is also taken without
+    it, on the host's clock, and the busy share is the device time over
+    that wall."""
     cfg, params, v, s, w = case
 
     def trace(n):
-        return trace_batch(dataclasses.replace(cfg, nstep_max=n), params, v, s, w)
+        c = dataclasses.replace(cfg, nstep_max=n)
+        return lambda: tracer(c, params, v, s, w)
 
-    trace(2)                                                    # warm-up
-    wall = (measure.host_s(lambda: trace(steps), device)[0]
-            - measure.host_s(lambda: trace(0), device)[0]) * 1e6 / steps
-    none, full = _window(case, 0, device), _window(case, steps, device)
+    first = measure.host_s(trace(steps), device)[0]            # warm-up
+    trace(0)()
+    again = measure.host_s(trace(steps), device)[0]
+    wall = (again - measure.host_s(trace(0), device)[0]) * 1e6 / steps
+    none, full = measure.profile(trace(0), device), measure.profile(trace(steps), device)
     device_us = (full.busy_us - none.busy_us) / steps
     return {"kernels": (len(full.kernels) - len(none.kernels)) / steps,
             "copies": (len(full.copies) - len(none.copies)) / steps,
@@ -110,7 +153,36 @@ def step_window(case, steps, device):
             "profiled_wall_us": (full.wall_us - none.wall_us) / steps,
             "busy_share": device_us / wall, "quantiles": full.quantiles(),
             "top": [(n, us / steps, c / steps) for n, us, c in full.top(8)],
-            "profiled": bool(full.kernels)}
+            "profiled": bool(full.kernels), "first_s": first, "again_s": again}
+
+
+def graph_window(case, steps, device):
+    """``step_window`` through ``trace_rays``'s graphed tracer (on a card:
+    the graphs exist only there), plus {capture_ms: the first call less a
+    later one (the one-off capture of the configuration), launch_us: the
+    host time of one replay call of each graph, reads and passes: host
+    reads and lockstep substep passes per outer step
+    (``rk45.SubstepStats``, in a run of its own)}."""
+    cfg, params, v, s, w = case
+    wnd = step_window(case, steps, device, trace_rays)
+    c = dataclasses.replace(cfg, nstep_max=steps)
+    launch_us = {}
+    for name, g in graphed._CACHE[graphed.cache_key(c, params, v)].graphs.items():
+        # the host's part of one replay: the graph launch, with the stream
+        # idle before it (the next call loads its inputs again)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        g.replay()
+        launch_us[name] = (time.perf_counter() - t0) * 1e6
+        torch.cuda.synchronize(device)
+    rk45.stats = rk45.SubstepStats()
+    try:
+        trace_rays(c, params, v, s, w)
+        loops, reads, _, _ = rk45.stats.totals()
+    finally:
+        rk45.stats = None
+    return {**wnd, "capture_ms": (wnd["first_s"] - wnd["again_s"]) * 1e3,
+            "launch_us": launch_us, "reads": reads / steps, "passes": loops / steps}
 
 
 def b1_window(device, n_rays, dtype=torch.float64, reps=5):
@@ -158,6 +230,27 @@ def call_cost(device, n_rays, dtype, reps=3, burst=5):
     return one, five
 
 
+def _window_line(wnd, census, tracer, case, steps, dev):
+    """One line of a profiled window on the card; where the profiler saw no
+    device time, CUDA events time ``steps`` outer steps of ``tracer``
+    instead."""
+    if not wnd["profiled"]:
+        cfg, params, v, s, w = case
+        ms, _ = measure.time_ms(lambda: tracer(dataclasses.replace(cfg, nstep_max=steps),
+                                               params, v, s, w), dev)
+        wnd["events_ms"] = ms / steps
+        return (f"torch.profiler showed no device time; CUDA events: {ms / steps:.3f} ms per "
+                f"outer step (kernels per step not measured)")
+    q = wnd["quantiles"]
+    top = "".join(f"\n    {us:9.2f} us {calls:6.1f} calls per step  {kname[:90]}"
+                  for kname, us, calls in wnd["top"])
+    return (f"CUDA kernels per outer step {wnd['kernels']:.1f} (census {census.n_ops} aten ops; "
+            f"copies {wnd['copies']:.1f}); device {wnd['device_us'] / 1e3:.3f} ms of "
+            f"{wnd['wall_us'] / 1e3:.3f} ms per step (profiled: "
+            f"{wnd['profiled_wall_us'] / 1e3:.3f} ms), busy share {wnd['busy_share']:.4f}; "
+            f"kernel us min {q[0]:.2f} median {q[1]:.2f} p90 {q[2]:.2f} max {q[3]:.2f}{top}")
+
+
 def run(device="cuda", n_rays=N_RAYS, steps=STEPS, log=print):
     """Every section; returns (report lines, {"b1_ops", "census", "windows",
     "b1", "calls"})."""
@@ -202,22 +295,20 @@ def run(device="cuda", n_rays=N_RAYS, steps=STEPS, log=print):
             say(f"{name}: host {wnd['wall_us'] / 1e3:.3f} ms per outer step (cpu run: device "
                 f"time not measured); census {census[name].n_ops} aten ops per step")
             continue
-        if not wnd["profiled"]:
-            ms, _ = measure.time_ms(lambda: trace_batch(dataclasses.replace(
-                cases[name][0], nstep_max=steps), *cases[name][1:]), dev)
-            wnd["events_ms"] = ms / steps
-            say(f"{name}: torch.profiler showed no device time; CUDA events: {ms / steps:.3f} "
-                f"ms per outer step (kernels per step not measured)")
+        say(f"{name} eager: " + _window_line(wnd, census[name], trace_batch, cases[name], steps,
+                                             dev))
+    graphs = {}
+    for name in GRAPHED:
+        if not cuda:
+            say(f"{name} graphed: not measured (cpu run; the graphs exist only on a card)")
             continue
-        q = wnd["quantiles"]
-        say(f"{name}: CUDA kernels per outer step {wnd['kernels']:.1f} (census "
-            f"{census[name].n_ops} aten ops; copies {wnd['copies']:.1f}); device "
-            f"{wnd['device_us'] / 1e3:.3f} ms of {wnd['wall_us'] / 1e3:.3f} ms per step "
-            f"(profiled: {wnd['profiled_wall_us'] / 1e3:.3f} ms), busy share "
-            f"{wnd['busy_share']:.4f}; kernel us min {q[0]:.2f} median {q[1]:.2f} p90 "
-            f"{q[2]:.2f} max {q[3]:.2f}")
-        for kname, us, calls in wnd["top"]:
-            say(f"    {us:9.2f} us {calls:6.1f} calls per step  {kname[:90]}")
+        wnd = graphs[name] = graph_window(cases[name], steps, dev)
+        say(f"{name} graphed: " + _window_line(wnd, census[name], trace_rays, cases[name], steps,
+                                               dev)
+            + f"; host reads {wnd['reads']:.3f} and substep passes {wnd['passes']:.3f} per "
+            f"outer step; capture {wnd['capture_ms']:.1f} ms (once per configuration); host "
+            f"time of one replay call: " + ", ".join(
+                f"{k} {us:.1f} us" for k, us in wnd["launch_us"].items()))
     del cases
     b1 = {}
     if cuda:
@@ -246,8 +337,8 @@ def run(device="cuda", n_rays=N_RAYS, steps=STEPS, log=print):
                     f"sustained); implied fixed cost per call {(one - five) * 1e3:.3f} ms")
     else:
         say("not measured (cpu run; B1 runs only on the card)")
-    return lines, {"b1_ops": b1_ops, "census": census, "windows": windows, "b1": b1,
-                   "calls": calls}
+    return lines, {"b1_ops": b1_ops, "census": census, "windows": windows, "graphs": graphs,
+                   "b1": b1, "calls": calls}
 
 
 def main(argv=None):
