@@ -27,13 +27,21 @@ every kernel library, runs in every call):
   for bit on every field, twice (the second call replays the first call's
   capture with the inputs copied in again), with the captures and replays
   counted and the one-off capture timed.
-* adjoint, phases 9, 13 and 16: the training step of __graft_entry__.py
-  (32,768 damped rays x 400 steps, trajectories on, forward, backward and
-  a finite-difference check through the kernel), the adaptive training
-  step (100 outer steps x 2 masked substeps) and the EQDSK adjoint (100
-  RK4 steps, the psi cell table among the leaves).  The default call,
-  which runs every group, cuts phase 9 to TRAIN_STEPS_DEFAULT and phase 13
-  to SG_ADJOINT_STEPS_DEFAULT and says so in their lines.
+* adjoint, phases 30, 9, 13 and 16, every one through the graphed adjoint
+  (tracing/graphed_adjoint.py: each outer step and its VJP captured once
+  as CUDA graphs, the backward replaying the VJP last step first).  30:
+  every configuration of that route (RK4 on the slab, damped slab, slab
+  with the equilibrium-gradient slots, Solovev, EQDSK and damped mirror;
+  SG with a fixed substep budget on the slab; the compensated float32
+  carry) at ADJOINT_RAYS rays x ADJOINT_STEPS steps with
+  trajectories, the loss and every gradient held to eager autograd
+  through trace_batch (ADJOINT_RTOL of each leaf's scale), the forward bit
+  for bit.  9: the training step of __graft_entry__.py (32,768 damped rays
+  x 400 steps, trajectories on, forward, backward and a finite-difference
+  check through the kernel); 13: the adaptive training step (100 outer
+  steps x 2 masked substeps); 16: the EQDSK adjoint (100 RK4 steps, the
+  psi cell table among the leaves).  Each prints its route and is timed at
+  its second call, the first capturing it.
 * plain, phases 10-12: the Solovev tokamak fan under the adaptive stepper
   (the example against the same code on the CPU, the CLI, 32,768 rays x
   200 outer steps, RK4 at f64 and f32) and the slab under the adaptive
@@ -79,6 +87,8 @@ every kernel library, runs in every call):
   and busy share that torch.profiler sees, eager and graphed, with the
   graphed paths' host reads and capture time; B1's
   device time at 256 and 32,768 rays; trace_rays' fixed cost per call);
+  the backward pass of one outer step in the three adjoints of phases 9,
+  13 and 16, eager and graphed;
   26 tools/op_roofline.py (the op-rate kernels of csrc/op_rates.cu, each
   held to its plain chain at the full depth and one iteration short, and
   B1 priced at their rates beside the published-peak bound); 27
@@ -155,13 +165,15 @@ SPLINE_BATCH_STEPS = 500    # bench.py's
 EQDSK_ADJOINT_STEPS = 100   # RK4 steps of the EQDSK adjoint (bench.py runs 500)
 EQDSK_FD_STEPS = 20         # RK4 steps of its finite-difference check
 TRAIN_STEPS = 400           # RK4 steps of the damped training step (the example's)
-TRAIN_STEPS_DEFAULT = 100   # ... in the default call, which runs every group
 SG_ADJOINT_STEPS = 100      # outer steps of the adaptive training step
-SG_ADJOINT_STEPS_DEFAULT = 50
 SG_FD_STEPS = 20        # outer steps of its finite-difference check
 GROUPS = ("kernel", "graph", "adjoint", "plain", "spline", "post", "tools", "profile")
 GRAPH_RAYS = 4096       # phase 29: each graphed path against its eager twin
 GRAPH_STEPS = 50
+ADJOINT_RAYS = 4096     # phase 30: each graphed adjoint against eager autograd
+ADJOINT_STEPS = 50
+ADJOINT_RTOL = 1e-10    # of each leaf's largest eager gradient, f64
+ADJOINT_RTOL_F32 = 2e-6     # ... f32: 16 ulp (the steps summed in another order)
 # post-processing (phases 17-19): the rays the CPU recomputes, and the
 # tolerances of tests/test_torch_post_*.py for the card against the CPU
 N_HOST_CHECK = 64
@@ -532,7 +544,7 @@ def spline_phases(run):
     eqdsk_adjoint_phase(run, (cfg_e, params_e, v0_e, st0_e, pwr_e))
     require(fused_slab.LAUNCHES == launches_before,
             "phases 14-16 launched the slab kernel")
-    print("phases 14-16: route graph in 14-15, plain in the adjoint (16); no kernel launch counted")
+    print("phases 14-16: route graph in 14-15, adjoint in 16; no kernel launch counted")
 
 
 def spline_example(write_example, directory, dev):
@@ -552,6 +564,7 @@ def eqdsk_adjoint_phase(run, case=None):
     (phase 14's, or made here)."""
     from rays_tpu_torch import examples
     from rays_tpu_torch.core.types import tree_leaves, tree_map
+    from rays_tpu_torch.tracing import graphed_adjoint
     from rays_tpu_torch.tracing.trace import route, trace_rays
 
     card, dev, paths = run.card, run.dev, run.paths
@@ -566,7 +579,7 @@ def eqdsk_adjoint_phase(run, case=None):
 
     def adjoint_step(cfg_, v, st, w):
         pg = tree_map(lambda t: t.detach().clone().requires_grad_(True), params_e)
-        require(route(cfg_, True, v.device) == "plain", "the adjoint takes the plain route")
+        require(route(cfg_, True, v.device) == "adjoint", "the adjoint takes the adjoint graph")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -582,7 +595,10 @@ def eqdsk_adjoint_phase(run, case=None):
 
     cfg_a = dataclasses.replace(cfg_e, save_trajectory=False, nstep_max=EQDSK_ADJOINT_STEPS)
     vb, stb, wb = examples.replicate_rays(v0_e, st0_e, pwr_e, N_RAYS)
+    c0 = graphed_adjoint.CAPTURES
+    first_ms = sum(adjoint_step(cfg_a, vb, stb, wb)[3:5])     # with the capture
     loss_a, pg, grads_a, fwd, bwd, peak = adjoint_step(cfg_a, vb, stb, wb)
+    require(graphed_adjoint.CAPTURES - c0 == 1, "the EQDSK adjoint was not captured once")
     bad = [i for i, g in enumerate(grads_a) if not bool(torch.isfinite(g).all())]
     require(not bad, f"non-finite EQDSK gradients in leaves {bad}")
     g_cells = next(g for g, t in zip(grads_a, tree_leaves(pg)) if t is pg.eq.mag.psi_cells.cells)
@@ -590,13 +606,15 @@ def eqdsk_adjoint_phase(run, case=None):
     require(float(g_cells.abs().max()) > 0 and float(g_alphan.abs()) > 0,
             "the psi cell table or alphan1 got no gradient")
     print(f"phase 16 EQDSK adjoint {N_RAYS} rays x {EQDSK_ADJOINT_STEPS} RK4 steps f64 "
-          f"(summaries only): loss {float(loss_a):.12e}, forward {fwd:.1f} ms, backward "
-          f"{bwd:.1f} ms, peak memory {peak / 2**30:.2f} GiB; {len(grads_a)} leaf gradients all "
+          f"(summaries only), route adjoint: loss {float(loss_a):.12e}, forward {fwd:.1f} ms, "
+          f"backward {bwd:.1f} ms (first call, with the capture, {first_ms:.1f} ms in all), peak "
+          f"memory {peak / 2**30:.2f} GiB; {len(grads_a)} leaf gradients all "
           f"finite, the psi cell table's {tuple(g_cells.shape)} with "
           f"{int((g_cells != 0).sum())} nonzero entries, max {float(g_cells.abs().max()):.3e} "
           f"on {card}")
-    paths.append({"name": "eqdsk_adjoint_f64", "route": "plain", "ms": fwd + bwd, "forward_ms": fwd,
-                  "backward_ms": bwd, "steps": EQDSK_ADJOINT_STEPS,
+    paths.append({"name": "eqdsk_adjoint_f64", "route": "adjoint", "ms": fwd + bwd,
+                  "forward_ms": fwd, "backward_ms": bwd, "first_ms": first_ms,
+                  "peak_gib": peak / 2**30, "steps": EQDSK_ADJOINT_STEPS,
                   "rays_per_s": N_RAYS / (fwd + bwd) * 1e3})
     del grads_a, pg, vb, stb, wb
 
@@ -902,15 +920,16 @@ def kernel_phases(run):
             "big64_end": big64.end_ray_vec, "fill": fill}
 
 
-def training_phase(run, steps):
+def training_phase(run, steps=TRAIN_STEPS):
     """Phase 9: the training step of __graft_entry__.py on one GPU at
-    ``steps`` of its TRAIN_STEPS steps, and its directional derivative."""
+    ``steps`` steps through the graphed adjoint, timed at its second call
+    (the first captures it), and its directional derivative."""
     from rays_tpu_torch import examples
     from rays_tpu_torch.core.types import tree_leaves, tree_map
     from rays_tpu_torch.post.deposition import calculate_deposition_profile
-    from rays_tpu_torch.tracing import fused_slab
+    from rays_tpu_torch.tracing import fused_slab, graphed_adjoint
     from rays_tpu_torch.tracing.stop import StopCode
-    from rays_tpu_torch.tracing.trace import trace_rays
+    from rays_tpu_torch.tracing.trace import route, trace_rays
 
     dev, f64 = run.dev, torch.float64
     cfg_d, params_d, v0_d, st0_d, pwr_d = examples.setup_example(
@@ -933,7 +952,7 @@ def training_phase(run, steps):
 
     def train_step(v, st, w):
         """(loss, grads, forward ms, backward ms, peak bytes, stop flags)
-        through the adjoint route of trace_rays."""
+        through trace_rays with gradients."""
         pg = with_grad(params_d)
         leaves = tree_leaves(pg)
         torch.cuda.synchronize()
@@ -957,7 +976,12 @@ def training_phase(run, steps):
         require(fused_slab.LAUNCHES > before, "the kernel forward did not launch the kernel")
         return out, res
 
+    which = route(cfg_t, True, dev)
+    require(which == "adjoint", f"the training step takes route {which}, not the adjoint graph")
+    c0 = graphed_adjoint.CAPTURES
+    first_ms = sum(train_step(vd, std, wd)[2:4])     # with the capture
     loss9, grads9, fwd_ms, bwd_ms, peak, flags9 = train_step(vd, std, wd)
+    require(graphed_adjoint.CAPTURES - c0 == 1, "the training step was not captured once")
     n_leaves = len(grads9)
     bad = [i for i, g in enumerate(grads9) if not bool(torch.isfinite(g).all())]
     require(not bad, f"non-finite gradients in leaves {bad}")
@@ -967,15 +991,15 @@ def training_phase(run, steps):
     loss_rel = abs(float(lossk) - float(loss9)) / abs(float(loss9))
     require(loss_rel <= LOSS_RTOL,
             f"kernel-forward loss {float(lossk)!r} vs autograd {float(loss9)!r}: {loss_rel:.3e}")
-    depth = ("its full depth" if steps == TRAIN_STEPS else
-             f"cut from {TRAIN_STEPS} to fit the default run; --group adjoint runs all")
-    print(f"phase 9 training step {N_RAYS} rays x {steps} steps f64 ({depth}; trajectories "
-          f"on, {N_BINS} bins): loss {float(loss9):.12e}, forward {fwd_ms:.1f} ms, backward "
-          f"{bwd_ms:.1f} ms, peak memory {peak / 2**30:.2f} GiB; {absorbed} rays end with "
-          f"TOTAL_ABSORPTION; {n_leaves} leaf gradients all finite; kernel-forward loss rel "
-          f"diff {loss_rel:.3e} (bound {LOSS_RTOL}) on {run.card}")
-    run.paths.append({"name": "training_step_f64", "ms": fwd_ms + bwd_ms, "forward_ms": fwd_ms,
-                      "backward_ms": bwd_ms, "steps": steps, "peak_gib": peak / 2**30})
+    print(f"phase 9 training step {N_RAYS} rays x {steps} steps f64 (trajectories on, {N_BINS} "
+          f"bins), route {which}: loss {float(loss9):.12e}, forward {fwd_ms:.1f} ms, backward "
+          f"{bwd_ms:.1f} ms (first call, with the capture, {first_ms:.1f} ms in all), peak "
+          f"memory {peak / 2**30:.2f} GiB; {absorbed} rays end with TOTAL_ABSORPTION; "
+          f"{n_leaves} leaf gradients all finite; kernel-forward loss rel diff {loss_rel:.3e} "
+          f"(bound {LOSS_RTOL}) on {run.card}")
+    run.paths.append({"name": "training_step_f64", "route": which, "ms": fwd_ms + bwd_ms,
+                      "forward_ms": fwd_ms, "backward_ms": bwd_ms, "first_ms": first_ms,
+                      "steps": steps, "peak_gib": peak / 2**30})
     del grads9
 
     # the directional derivative on the 3 example rays against a central
@@ -1147,11 +1171,12 @@ def plain_phases(run, big64_end=None):
     del slab_sg
 
 
-def sg_training_phase(run, steps):
+def sg_training_phase(run, steps=SG_ADJOINT_STEPS):
     """Phase 13: the adaptive training step (bench.py's SG adjoint) at
-    ``steps`` of its SG_ADJOINT_STEPS outer steps, and its directional
-    derivative."""
+    ``steps`` outer steps through the graphed adjoint, timed at its second
+    call (the first captures it), and its directional derivative."""
     from rays_tpu_torch.core.types import tree_leaves, tree_map
+    from rays_tpu_torch.tracing import graphed_adjoint
     from rays_tpu_torch.tracing.trace import route, trace_rays
 
     card, dev, paths = run.card, run.dev, run.paths
@@ -1165,7 +1190,7 @@ def sg_training_phase(run, steps):
 
     def sg_train_step(cfg_, v, st, w):
         pg = tree_map(lambda t: t.detach().clone().requires_grad_(True), params_g)
-        require(route(cfg_, True, v.device) == "plain", "the adjoint takes the plain route")
+        require(route(cfg_, True, v.device) == "adjoint", "the adjoint takes the adjoint graph")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1180,20 +1205,22 @@ def sg_training_phase(run, steps):
         return (loss.detach(), res, grads, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
                 torch.cuda.max_memory_allocated())
 
+    c0 = graphed_adjoint.CAPTURES
+    first_ms = sum(sg_train_step(cfg_a, vg, stg, wg)[3:5])     # with the capture
     loss_a, res_a, grads_a, fwd_a, bwd_a, peak_a = sg_train_step(cfg_a, vg, stg, wg)
+    require(graphed_adjoint.CAPTURES - c0 == 1, "the SG training step was not captured once")
     require(int(res_a.npoints.min()) == steps + 1 == int(res_a.npoints.max()),
             "the budget of 2 substeps did not suffice")
     bad = [i for i, g in enumerate(grads_a) if not bool(torch.isfinite(g).all())]
     require(not bad, f"non-finite SG gradients in leaves {bad}")
-    depth = ("its full depth" if steps == SG_ADJOINT_STEPS else
-             f"cut from {SG_ADJOINT_STEPS} to fit the default run; --group adjoint runs all")
-    print(f"phase 13 SG training step {N_RAYS} rays x {steps} outer steps f64 ({depth}; "
-          f"sg_scan_substeps 2, summaries only): loss {float(loss_a):.12e}, forward "
-          f"{fwd_a:.1f} ms, backward {bwd_a:.1f} ms, peak memory {peak_a / 2**30:.2f} GiB; "
-          f"{len(grads_a)} leaf gradients all finite on {card}")
-    paths.append({"name": "slab_sg_training_step_f64", "route": "plain", "ms": fwd_a + bwd_a,
-                  "forward_ms": fwd_a,
-                  "backward_ms": bwd_a, "outer_steps": steps,
+    print(f"phase 13 SG training step {N_RAYS} rays x {steps} outer steps f64 (sg_scan_substeps "
+          f"2, summaries only), route adjoint: loss {float(loss_a):.12e}, forward {fwd_a:.1f} "
+          f"ms, backward {bwd_a:.1f} ms (first call, with the capture, {first_ms:.1f} ms in "
+          f"all), peak memory {peak_a / 2**30:.2f} GiB; {len(grads_a)} leaf gradients all "
+          f"finite on {card}")
+    paths.append({"name": "slab_sg_training_step_f64", "route": "adjoint", "ms": fwd_a + bwd_a,
+                  "forward_ms": fwd_a, "backward_ms": bwd_a, "first_ms": first_ms,
+                  "peak_gib": peak_a / 2**30, "outer_steps": steps,
                   "rays_per_s": N_RAYS / (fwd_a + bwd_a) * 1e3})
     del res_a, grads_a
 
@@ -1274,6 +1301,89 @@ def graph_phase(run):
           f"{time.perf_counter() - t_phase:.1f} s; graphed.CAPTURES {graphed.CAPTURES}, "
           f"graphed.REPLAYS {graphed.REPLAYS} in this process; cache of "
           f"{graphed.CACHE_SIZE}, {graphed.CHUNK} substep pass per read on {card}")
+
+
+def adjoint_phase(run):
+    """Phase 30: every configuration of the graphed adjoint against eager
+    autograd through trace_batch on the card, at ADJOINT_RAYS rays x
+    ADJOINT_STEPS steps with trajectories: a loss that reads every floating
+    RayResults field (weights from a numpy seed) through trace_rays
+    (captured at the first call, replayed at the second) and through
+    trace_batch; the forward bit for bit, the loss bit for bit, every
+    gradient (floating Params leaves, v0, pwr_wt) within ADJOINT_RTOL
+    (ADJOINT_RTOL_F32 in float32) of the leaf's largest eager gradient."""
+    from rays_tpu_torch.core.types import tree_leaves, tree_map
+    from rays_tpu_torch.tracing import fused_slab, graphed_adjoint
+    from rays_tpu_torch.tracing.trace import RayResults, route, trace_batch, trace_rays
+
+    card, dev = run.card, run.dev
+    sp = _tool("step_profile")
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = sp.adjoint_cases(dev, ADJOINT_RAYS, tmp)
+
+    def loss_and_grads(tracer, cfg, params, v, st, w):
+        """(loss, results, gradients, ms, peak bytes) on the host clock."""
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(t.is_floating_point()), params)
+        v, w = v.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        leaves = [t for t in tree_leaves(p) if t.is_floating_point()] + [v, w]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = tracer(cfg, p, v, st, w)
+        rng = np.random.default_rng(30)
+        loss = sum((t * torch.as_tensor(rng.standard_normal(tuple(t.shape)), dtype=t.dtype,
+                                        device=dev)).sum()
+                   for t in res if t is not None and t.is_floating_point())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        torch.cuda.synchronize()
+        return (loss.detach(), res, grads, (time.perf_counter() - t0) * 1e3,
+                torch.cuda.max_memory_allocated())
+
+    t_phase = time.perf_counter()
+    for name, (cfg, params, v, st, w) in cases.items():
+        cfg = dataclasses.replace(cfg, nstep_max=ADJOINT_STEPS)
+        which = route(cfg, True, dev)
+        require(which == "adjoint", f"{name}: route {which}, not the adjoint graph")
+        loss_and_grads(trace_batch, dataclasses.replace(cfg, nstep_max=2), params, v, st, w)
+        ref_loss, ref, ref_grads, eager_ms, eager_peak = loss_and_grads(
+            trace_batch, cfg, params, v, st, w)
+        c0, r0, l0 = graphed_adjoint.CAPTURES, graphed_adjoint.REPLAYS, fused_slab.LAUNCHES
+        first_ms = loss_and_grads(trace_rays, cfg, params, v, st, w)[3]
+        c1, r1 = graphed_adjoint.CAPTURES, graphed_adjoint.REPLAYS
+        loss, got, grads, graphed_ms, peak = loss_and_grads(trace_rays, cfg, params, v, st, w)
+        per_call = (r1 - r0, graphed_adjoint.REPLAYS - r1)
+        require(c1 - c0 == 1 and graphed_adjoint.CAPTURES == c1,
+                f"{name}: {graphed_adjoint.CAPTURES - c0} captures in two calls")
+        require(per_call == (2 * ADJOINT_STEPS,) * 2, f"{name}: replays per call {per_call}")
+        require(fused_slab.LAUNCHES == l0, f"{name}: the adjoint launched B1")
+        bad = [f for f, g, r in zip(RayResults._fields, got, ref)
+               if (g is None) != (r is None) or (r is not None and not torch.equal(g, r))]
+        require(not bad, f"{name}: forward fields {bad} differ from trace_batch's")
+        require(torch.equal(loss, ref_loss), f"{name}: loss {float(loss)!r} vs {float(ref_loss)!r}")
+        worst, same = 0.0, 0
+        rtol = ADJOINT_RTOL if v.dtype == torch.float64 else ADJOINT_RTOL_F32
+        for i, (g, r) in enumerate(zip(grads, ref_grads)):
+            scale = float(r.abs().max()) if r.numel() else 0.0
+            err = float((g - r).abs().max()) if r.numel() else 0.0
+            require(bool(torch.isfinite(g).all()) and err <= rtol * scale,
+                    f"{name}: gradient {i} differs by {err:.3e} of scale {scale:.3e}")
+            worst = max(worst, err / scale if scale else 0.0)
+            same += bool(torch.equal(g, r))
+        print(f"phase 30 {name} {ADJOINT_RAYS} rays x {ADJOINT_STEPS} steps "
+              f"{str(v.dtype).replace('torch.', '')}, route {which}: forward and loss equal to "
+              f"trace_batch's bit for bit; {len(grads)} gradients within {worst:.3e} of scale "
+              f"(bound {rtol}), {same} bit-equal; 1 capture, {per_call[0]} replays a "
+              f"call; eager {eager_ms:.1f} ms, graphed {graphed_ms:.1f} ms "
+              f"(x{eager_ms / graphed_ms:.2f}), first call {first_ms:.1f} ms; peak "
+              f"{peak / 2**30:.2f} GiB graphed, {eager_peak / 2**30:.2f} GiB eager")
+        run.paths.append({"name": f"adjoint_{name}", "route": which, "ms": graphed_ms,
+                          "eager_ms": eager_ms, "first_ms": first_ms, "peak_gib": peak / 2**30,
+                          "eager_peak_gib": eager_peak / 2**30, "worst_grad_rel": worst,
+                          "bit_equal_grads": same, "grads": len(grads)})
+    print(f"phase 30 {len(cases)} graphed adjoints held to eager autograd in "
+          f"{time.perf_counter() - t_phase:.1f} s; graphed_adjoint.CAPTURES "
+          f"{graphed_adjoint.CAPTURES}, REPLAYS {graphed_adjoint.REPLAYS} in this process on "
+          f"{card}")
 
 
 def post_main_path_phase(run):
@@ -1703,7 +1813,8 @@ def tools_phases(run, fill, inverse_steps):
                 "the two processes' losses or gradients differ")
         print(f"phase 23 entry.dryrun_multiprocess(2): two processes on the one card over gloo "
               f"(NCCL refuses two ranks on one device), damped slab {r0['rays'][2]} rays x "
-              f"{r0['nstep']} steps with trajectories, rays {[r['rays'][:2] for r in reports]}: "
+              f"{r0['nstep']} steps with trajectories, route {r0['route']} (the training step's "
+              f"gradients), rays {[r['rays'][:2] for r in reports]}: "
               f"split == whole at __graft_entry__.py's tolerances on each; loss "
               f"{r0['loss']:.12e}, gradient l1 {r0['grad_l1']:.6e} over {r0['leaves']} leaves, "
               f"deposition {r0['deposition_sum']:.6e}; split step "
@@ -1894,7 +2005,8 @@ def inverse_phase(run, steps):
            if steps < INVERSE_STEPS else "")
     print(f"phase 24 inverse demo ({card['target'].shape[0]} rays x {steps} RK4 steps{cut}) "
           f"at its start on {dev}: loss {float(card['loss']):.12e}, gradient "
-          f"{card['grad'].tolist()}, equal to the CPU's within {loss_err:.3e} and "
+          f"{card['grad'].tolist()} (routes: gradient {card['routes']['gradient']}, forward-mode "
+          f"columns {card['routes']['columns']}), equal to the CPU's within {loss_err:.3e} and "
           f"{grad_err:.3e} of scale (bound {INVERSE_RTOL}); loss, gradient and the two "
           f"forward-mode columns {t_start:.2f} s; {INVERSE_ITERS} Adam iterations "
           f"{t_demo:.2f} s (losses {[f'{h[0]:.3e}' for h in out['history']]})")
@@ -1938,7 +2050,12 @@ def profile_phases(run, full):
     steps, cut = _cut(full, PROFILE_STEPS, PROFILE_STEPS_DEFAULT, "profiled outer steps")
     t0 = time.perf_counter()
     fused_slab.LAUNCHES = 0
-    lines, rep = _tool("step_profile").run(dev.type, N_RAYS, steps, log=quiet)
+    sp = _tool("step_profile")
+    # the default call profiles the training step's backward alone
+    vjp_paths = sp.VJP_PATHS if full else sp.VJP_PATHS[:1]
+    vjp_cut = "" if full else (f" (paths cut from {len(sp.VJP_PATHS)} to 1 in the default call; "
+                               f"--group profile runs all)")
+    lines, rep = sp.run(dev.type, N_RAYS, steps, log=quiet, vjp_paths=vjp_paths)
     b1_launches = fused_slab.LAUNCHES
     path = measure.write_report(lines, os.path.join("build", "step_profile.txt"))
     for name, per in rep["b1_ops"].items():
@@ -1965,8 +2082,7 @@ def profile_phases(run, full):
                   f"capture {g['capture_ms']:.1f} ms; one replay call on the host "
                   + ", ".join(f"{k} {us:.1f} us" for k, us in g["launch_us"].items())
                   + cut)
-    require(set(rep["graphs"]) == set(_tool("step_profile").GRAPHED),
-            f"graphed windows {sorted(rep['graphs'])}")
+    require(set(rep["graphs"]) == set(sp.GRAPHED), f"graphed windows {sorted(rep['graphs'])}")
     for n, b in rep["b1"].items():
         require(b["launches"] == 1, f"B1 at {n} rays: {b}")
         print(f"phase 25 B1 slab f64 x 500, {n} rays: kernel {b['kernel_ms']:.3f} ms of device "
@@ -1977,6 +2093,11 @@ def profile_phases(run, full):
         print(f"phase 25 trace_rays through B1, {n} rays {tag}: single call {one * 1e3:.3f} ms, "
               f"5 back to back {five * 1e3:.3f} ms per call, fixed cost per call "
               f"{(one - five) * 1e3:.3f} ms (host clock, best of 3)")
+    require(set(rep["vjp"]) == {(n, t) for n in vjp_paths for t in ("eager", "graphed")},
+            f"VJP windows {sorted(rep['vjp'])}")
+    for (name, tag), w in rep["vjp"].items():
+        print(f"phase 25 {name} {N_RAYS} rays f64 with trajectories, one outer step's backward "
+              f"pass, {tag}: {window(w)}{cut}{vjp_cut}")
     # B1 at two sizes (warm-up, profiled call, 3 timed calls, 5 hidden
     # behind the spin) and trace_rays at four (warm-up, 3 single calls, 3
     # bursts of 5)
@@ -1992,7 +2113,11 @@ def profile_phases(run, full):
                       "graphed_busy_share": {k: g.get("busy_share")
                                              for k, g in rep["graphs"].items()},
                       "graphed_capture_ms": {k: g["capture_ms"]
-                                             for k, g in rep["graphs"].items()}})
+                                             for k, g in rep["graphs"].items()},
+                      "vjp": {f"{k}_{t}": {"kernels": w["kernels"], "device_ms": w["device_us"] / 1e3,
+                                           "wall_ms": w["wall_us"] / 1e3,
+                                           "busy_share": w["busy_share"]}
+                              for (k, t), w in rep["vjp"].items()}})
 
     # phase 26: the op-class rates and B1 priced with them
     t0 = time.perf_counter()
@@ -2165,11 +2290,12 @@ def main(argv=None):
     if "graph" in groups:
         graph_phase(run)
     if "adjoint" in groups:
-        training_phase(run, TRAIN_STEPS_DEFAULT if every else TRAIN_STEPS)
+        adjoint_phase(run)
+        training_phase(run)
     if "plain" in groups:
         plain_phases(run, kernels["big64_end"] if kernels else None)
     if "adjoint" in groups:
-        sg_training_phase(run, SG_ADJOINT_STEPS_DEFAULT if every else SG_ADJOINT_STEPS)
+        sg_training_phase(run)
     if "spline" in groups:
         spline_phases(run)
     elif "adjoint" in groups:

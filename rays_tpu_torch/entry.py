@@ -40,7 +40,7 @@ from rays_tpu_torch import examples
 from rays_tpu_torch.core.types import tree_leaves, tree_map
 from rays_tpu_torch.parallel import multihost, sharded
 from rays_tpu_torch.post import deposition
-from rays_tpu_torch.tracing import rk4
+from rays_tpu_torch.tracing import rk4, trace
 
 N_BINS = 32
 DRYRUN_STEPS = 120
@@ -158,6 +158,7 @@ def dryrun_worker(device="cuda", nstep_max=DRYRUN_STEPS):
         "rank": mesh.rank, "processes": mesh.size, "device": str(dev),
         "backend": sharded.dist.get_backend() if sharded.distributed() else None,
         "rays": [lo, hi, int(v0.shape[0])], "nstep": nstep_max,
+        "route": trace.route(cfg, True, dev),
         "loss": float(loss), "grad_l1": float(sum(g.abs().sum() for g in grads)),
         "deposition_sum": float(prof.sum()), "leaves": len(grads),
         "split_s": t_split, "whole_s": t_whole,

@@ -11,11 +11,13 @@ the card idles most of a step.  A CUDA graph holds the step's kernels
 and launches them with one call.
 
 ``trace_rays`` sends here every config that the slab kernel's gate
-refuses, on a CUDA device without gradients (``trace.route``): Solovev
+refuses, on a CUDA device without derivatives (``trace.route``): Solovev
 under RK4 and SG, the EQDSK tokamak, the mirror, the slab under SG, the
 equilibrium-gradient slots, the autodiff derivatives, the compensated
-carry, in float32 and float64.  A capture or a replay that fails raises;
-nothing falls back to the eager loop.
+carry, in float32 and float64.  With reverse-mode gradients the same
+step goes to the graphed adjoint (tracing/graphed_adjoint.py), which
+builds on ``StaticLoop`` and shares this module's cache.  A capture or a
+replay that fails raises; nothing falls back to the eager loop.
 
 How a run goes (``StaticLoop``):
 

@@ -15,10 +15,12 @@ fixed-step RK4 (``RK4_ODE``) or the adaptive DP5(4) stepper (``SG_ODE``,
 tracing/rk45.py); autograd differentiates it with respect to every
 floating Params leaf, v0 and pwr_wt (the adjoint), with each step
 rematerialized on the backward pass when ``cfg.remat_steps`` is on.
-``trace_rays`` is the top-level dispatch; ``route`` says from the config
-alone which of the three tracers a run takes: the slab kernel, the
-graphed tracer (tracing/graphed.py, which replays this module's ``step``
-as a CUDA graph) or ``trace_batch``.
+``trace_rays`` is the top-level dispatch; ``route`` says from the config,
+the kind of derivative and the device which of the four tracers a run
+takes: the slab kernel, the graphed tracer (tracing/graphed.py, which
+replays this module's ``step`` as a CUDA graph), the graphed adjoint
+(tracing/graphed_adjoint.py, which replays ``step`` forward and its VJP
+backward, for reverse-mode gradients on the card) or ``trace_batch``.
 """
 
 from __future__ import annotations
@@ -84,24 +86,36 @@ def check_supported(cfg):
     rhs_mod.check_ported(cfg)
 
 
-def route(cfg, needs_grad, device) -> str:
-    """Which tracer a run takes, decided from the config, whether
-    gradients are asked for, and the device of its tensors, before
-    anything is launched: ``"kernel"`` (the slab RK4 CUDA kernel,
+def route(cfg, needs_grad, device, tangents=False) -> str:
+    """Which tracer a run takes, decided from the config, the kind of
+    derivative asked for (``needs_grad``: reverse mode; ``tangents``:
+    forward mode) and the device of its tensors, before anything is
+    launched: ``"kernel"`` (the slab RK4 CUDA kernel,
     tracing/fused_slab.py), ``"graph"`` (``trace_batch``'s outer step
     captured once per configuration as a CUDA graph and replayed,
-    tracing/graphed.py) or ``"plain"`` (``trace_batch`` on the tensors'
-    own device).
+    tracing/graphed.py), ``"adjoint"`` (the step and its VJP captured as
+    CUDA graphs, the forward replaying one and the backward the other,
+    tracing/graphed_adjoint.py) or ``"plain"`` (``trace_batch`` on the
+    tensors' own device).
 
-    On a CUDA device without gradients every config that
+    On a CUDA device without derivatives every config that
     ``fused_slab.supported`` accepts takes the kernel, and every other
     config of the port's own (the adaptive stepper, the Solovev tokamak,
     the spline geometries, the equilibrium-gradient slots, the autodiff
     derivatives, the compensated carry) the graph: the counterpart of the
-    JAX package's one ``jax.jit`` per config.  Gradients take the plain
-    route (the kernel has no backward and a graph holds no autograd
-    history; the JAX package's adjoint, too, is reverse mode through its
-    plain scan), as do the CPU and a model of the caller's own from
+    JAX package's one ``jax.jit`` per config.  With reverse-mode gradients
+    every config whose outer step is one graph takes the adjoint graph,
+    the counterpart of the JAX package's ``jax.jit(jax.value_and_grad)``:
+    RK4 on every geometry (the kernel's configs too: the kernel has no
+    backward), SG with ``sg_scan_substeps > 0``, the compensated carry.
+    It recomputes each step on the backward pass whatever
+    ``cfg.remat_steps`` says, which sets only the plain route's memory.
+
+    These stay plain: forward-mode tangents (no graph takes them yet);
+    the SG loop form (``sg_scan_substeps == 0``), which has no reverse
+    rule, as in the JAX package; ``ray_deriv_name='autodiff'``, whose
+    gradient is a second derivative through the autograd call inside the
+    step; the CPU; and a model of the caller's own from
     ``base.register_eq_model``, even under a built-in name: the port
     cannot promise that the caller's code is safe to capture.  This is a
     choice, not a fallback: a kernel that fails to build or launch, or a
@@ -110,8 +124,12 @@ def route(cfg, needs_grad, device) -> str:
     kind = torch.device(device).type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"trace_rays: unsupported device {device}")
-    if kind == "cpu" or needs_grad or cfg.equilib_model in base.EQ_MODELS:
+    if kind == "cpu" or tangents or cfg.equilib_model in base.EQ_MODELS:
         return "plain"
+    if needs_grad:
+        from rays_tpu_torch.tracing import graphed_adjoint
+
+        return "plain" if graphed_adjoint.refusal(cfg) else "adjoint"
     from rays_tpu_torch.tracing import fused_slab
 
     return "kernel" if fused_slab.supported(cfg) else "graph"
@@ -120,14 +138,17 @@ def route(cfg, needs_grad, device) -> str:
 def trace_rays(cfg, params, v0, status0, pwr_wt) -> RayResults:
     """Top-level tracer dispatch (reference trace_rays,
     ray_tracing.f90:1): the tracer that ``route`` names."""
-    # forward-mode tangents are derivatives asked for too
-    which = route(cfg, needs_grad(params, v0) or has_tangent(params, v0), v0.device)
+    which = route(cfg, needs_grad(params, v0), v0.device, tangents=has_tangent(params, v0))
     if which == "plain":
         return trace_batch(cfg, params, v0, status0, pwr_wt)
     if which == "graph":
         from rays_tpu_torch.tracing import graphed
 
         return graphed.trace_batch_graphed(cfg, params, v0, status0, pwr_wt)
+    if which == "adjoint":
+        from rays_tpu_torch.tracing import graphed_adjoint
+
+        return graphed_adjoint.trace_batch_graphed_adjoint(cfg, params, v0, status0, pwr_wt)
     from rays_tpu_torch.tracing import fused_slab
 
     return fused_slab.trace_batch_fused(cfg, params, v0, status0, pwr_wt)
@@ -267,9 +288,9 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
     plain run's, and the rounding errors gather in a carried vector that
     ends as ``end_ray_comp``.
 
-    This is the eager twin of the graphed tracer (tracing/graphed.py),
-    which replays the same ``step``; called directly it runs eagerly on
-    any device."""
+    This is the eager twin of the graphed tracer (tracing/graphed.py) and
+    of the graphed adjoint (tracing/graphed_adjoint.py), which replay the
+    same ``step``; called directly it runs eagerly on any device."""
     check_supported(cfg)
     B, nv = v0.shape
     dev, dt = v0.device, v0.dtype

@@ -47,7 +47,9 @@ def deriv_cold(eq, nvec, omgrf, k0):
 
     # species products (deriv_cold.f90:77-101)
     p = 1.0 - alpha.sum(-1)
-    t = (1.0 - gamma**2).prod(-1)
+    # a multiply chain, not prod: the graphed adjoint captures this
+    # function's backward, and prod's reads the host (stix.product)
+    t = stix.product(1.0 - gamma**2)
     dq1da, dq2da = stix.leave_one_out_products(gamma)
     q1 = (alpha * dq1da).sum(-1)
     q2 = (alpha * dq2da).sum(-1)

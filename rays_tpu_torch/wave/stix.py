@@ -37,7 +37,8 @@ def product(x):
     Autograd's formula for ``prod`` reads the host (it looks for zero
     factors), which a CUDA graph cannot capture; the autodiff derivatives
     (tracing/rhs.py) differentiate these products inside the graphed step,
-    and a chain's backward is plain multiplies."""
+    the graphed adjoint (tracing/graphed_adjoint.py) captures the backward
+    of every step, and a chain's backward is plain multiplies."""
     out = x[..., 0]
     for i in range(1, x.shape[-1]):
         out = out * x[..., i]
@@ -63,8 +64,8 @@ def leave_two_out_products(gamma):
     # keep[s1, s2, i] = (i != s1) & (i != s2)
     keep = (i[None, None, :] != i[:, None, None]) & (i[None, None, :] != i[None, :, None])
     one = torch.ones((), dtype=gamma.dtype, device=gamma.device)
-    gp = torch.where(keep, (1.0 + gamma)[:, None, None, :], one).prod(-1)
-    gm = torch.where(keep, (1.0 - gamma)[:, None, None, :], one).prod(-1)
+    gp = product(torch.where(keep, (1.0 + gamma)[:, None, None, :], one))
+    gm = product(torch.where(keep, (1.0 - gamma)[:, None, None, :], one))
     return gp, gm
 
 

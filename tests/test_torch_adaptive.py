@@ -535,7 +535,10 @@ def test_route_of_every_example(name, on_cuda):
     cfg, *_ = tex.setup_example(getattr(tex, name), device="cpu")
     assert ttrace.route(cfg, False, "cuda") == on_cuda
     assert fused_slab.supported(cfg) == (on_cuda == "kernel")
-    assert ttrace.route(cfg, True, "cuda") == "plain"
+    # reverse-mode gradients take the graphed adjoint (Solovev's SG loop
+    # form stays plain: it has no reverse rule)
+    assert ttrace.route(cfg, True, "cuda") == ("plain" if cfg.ode_solver_name == "SG_ODE"
+                                               else "adjoint")
     for grad in (False, True):
         assert ttrace.route(cfg, grad, "cpu") == ttrace.route(cfg, grad, torch.device("cpu")) \
             == "plain"

@@ -17,8 +17,10 @@ launcher), which is what the graphs replay.  Held:
 * no library product (mm, bmm, addmm, matmul) in an outer step, except
   the equilibrium-gradient einsum, one per RHS evaluation;
 * a reused loop answers each call with its own inputs;
-* the dispatch: the graph route on the card without gradients, plain
-  for gradients, the CPU and a registered model.
+* the dispatch: the graph route on the card without gradients, the
+  graphed adjoint for reverse-mode gradients (tests/test_torch_graphed_adjoint.py)
+  but plain for the SG loop form and the autodiff derivatives, plain for
+  the CPU and a registered model.
 """
 
 import collections
@@ -299,8 +301,10 @@ def test_route_of_each_graphed_config(setups, name):
     assert not fused_slab.supported(cfg)
     assert ttrace.route(cfg, False, "cuda") == ttrace.route(cfg, False, torch.device("cuda", 0)) \
         == "graph"
-    # gradients and the CPU stay plain
-    assert ttrace.route(cfg, True, "cuda") == "plain"
+    # reverse-mode gradients take the graphed adjoint, but for the SG loop
+    # form and the autodiff derivatives, which stay plain; the CPU stays plain
+    differentiable = name not in LOOP_FORM and name != "slab_rk4_autodiff"
+    assert ttrace.route(cfg, True, "cuda") == ("adjoint" if differentiable else "plain")
     assert ttrace.route(cfg, False, "cpu") == ttrace.route(cfg, True, "cpu") == "plain"
     # a model of the caller's own, even under the built-in name, stays plain
     tbase.register_eq_model(cfg.equilib_model, tbase.get_eq_model(cfg.equilib_model))

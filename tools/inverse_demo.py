@@ -12,7 +12,10 @@ Jacobian taken by forward mode (torch.autograd.forward_ad, as the JAX
 script takes them by jax.jvp).  The JAX package's own run of this demo
 ends FAIL (artifacts/inverse_demo.txt: the fit does not converge), so
 nothing here promises convergence; it is held only at its starting point
-(the loss, its gradient and the two Jacobian columns there).
+(the loss, its gradient and the two Jacobian columns there).  The
+trajectories go through ``trace_rays``: on the card the gradient takes the
+graphed adjoint (``trace.route``), the forward-mode columns the plain
+tracer.
 
     python tools/inverse_demo.py                  # on the card
     python tools/inverse_demo.py --device cpu --iters 5 --newton 1 --steps 20
@@ -36,7 +39,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from rays_tpu_torch import examples  # noqa: E402
-from rays_tpu_torch.tracing.trace import trace_batch  # noqa: E402
+from rays_tpu_torch.tracing.trace import route, trace_rays  # noqa: E402
 
 # The JAX script's experiment design (scripts/inverse_demo.py:29-60): the
 # fan samples a full poloidal circuit of launch points with a spread of
@@ -79,7 +82,7 @@ class InverseProblem:
 
     def trajectories(self, theta):
         p = self.params._replace(eq=self.params.eq._replace(kappa=theta[0], iota0=theta[1]))
-        return trace_batch(self.cfg, p, self.v0, self.st, self.pwr).ray_vec[:, :, 0:3]
+        return trace_rays(self.cfg, p, self.v0, self.st, self.pwr).ray_vec[:, :, 0:3]
 
     def residual(self, theta):
         return (self.trajectories(theta) - self.target).reshape(-1)
@@ -116,12 +119,16 @@ class InverseProblem:
 
 def start_point(nstep_max=80, device="cuda"):
     """What the demo is held to: theta, the loss, its gradient and the two
-    Jacobian columns at the starting point."""
+    Jacobian columns at the starting point, and the routes that the
+    gradient and the columns take (``trace.route``)."""
     prob = InverseProblem(nstep_max, device)
     loss, grad = prob.value_and_grad(prob.start)
     r, j0, j1 = prob.jvp_columns(prob.start)
+    dev = prob.v0.device
     return {"theta": prob.start, "loss": loss, "grad": grad, "residual": r,
-            "j0": j0, "j1": j1, "target": prob.target}
+            "j0": j0, "j1": j1, "target": prob.target,
+            "routes": {"gradient": route(prob.cfg, True, dev),
+                       "columns": route(prob.cfg, False, dev, tangents=True)}}
 
 
 def _solve2(a, b):

@@ -24,10 +24,16 @@ scripts/step_profile.py, for the eager tracer and the graphed one.
    at 32,768 and 131,072 rays, f32 and f64, on the host's clock: the best
    of 3 single calls against the best of 3 runs of 5 calls back to back,
    and the fixed cost per call this implies.
+4. One outer step's backward pass (its VJP) in the adjoints of the
+   training step, the SG training step and the EQDSK adjoint (VJP_PATHS):
+   the backward of ``2 --steps`` outer steps less that of ``--steps``,
+   eager (autograd through ``trace_batch``) and through ``trace_rays``'s
+   graphed adjoint (tracing/graphed_adjoint.py), with the same figures as
+   section 2.
 
 Writes build/step_profile.txt; every number beside the card's name and
 power limit.  On the CPU (``--device cpu``) sections 1 and 2 run the
-plain paths on the host (no device time) and B1 is not run.
+plain paths on the host (no device time); B1 and the graphs are not run.
 
     python tools/step_profile.py
     python tools/step_profile.py --device cpu --rays 8 --steps 2
@@ -46,9 +52,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from rays_tpu_torch import examples, run as runner  # noqa: E402
-from rays_tpu_torch.core.types import tree_to  # noqa: E402
+from rays_tpu_torch.core.types import tree_leaves, tree_map, tree_to  # noqa: E402
 from rays_tpu_torch.tracing import fused_slab, graphed, rk45  # noqa: E402
-from rays_tpu_torch.tracing.trace import trace_batch, trace_rays  # noqa: E402
+from rays_tpu_torch.tracing.trace import route, trace_batch, trace_rays  # noqa: E402
 from rays_tpu_torch.utils import measure, op_census, op_rates  # noqa: E402
 
 N_RAYS = 32768
@@ -105,25 +111,51 @@ GRAPH_CASES = {
     "mirror_damped_rk4": ("mirror_damped_rk4", {}),
     "slab_compensated_f32": ("slab_f32", dict(compensated_sum=True)),
 }
+# every path whose reverse mode trace_rays sends to the graphed adjoint
+# (tracing/graphed_adjoint.py), in the form of GRAPH_CASES: RK4 on every
+# geometry, B1's two configs among them, SG with a fixed substep budget
+ADJOINT_CASES = {
+    "slab_rk4": ("slab_rk4", {}),
+    "slab_rk4_damped": ("slab_damped", {}),
+    **{name: GRAPH_CASES[name] for name in ("slab_rk4_eq_gradients", "slab_sg_fixed_budget",
+                                            "solovev_rk4", "eqdsk_rk4", "mirror_damped_rk4",
+                                            "slab_compensated_f32")},
+}
+# the adjoints of chip_smoke.py's phases 9, 13 and 16, whose VJP per
+# outer step section 4 profiles
+VJP_PATHS = ("slab_rk4_damped", "slab_sg_fixed_budget", "eqdsk_rk4")
 MIRROR_DAMPED = examples.MIRROR_ECH_56GHZ.replace("damping_model='no_damp'",
                                                   "damping_model='damp_fund_ECH'")
 
 
-def graph_cases(device, n_rays, directory):
-    """{name: (cfg, params, v, status, pwr)} of GRAPH_CASES at ``n_rays``
-    rays, trajectories on; the spline files are written into
-    ``directory``."""
+def _cases(device, n_rays, directory, table):
+    """{name: (cfg, params, v, status, pwr)} of ``table`` ({name: (case of
+    plain_cases, "slab_f32", "mirror_damped_rk4" or "slab_damped", Config
+    changes)}) at ``n_rays`` rays, trajectories on; the spline files are
+    written into ``directory``."""
     base = plain_cases(device, n_rays, directory)
     cfg, params, v0, st, pwr = examples.setup_example(device=device, dtype=torch.float32)
     base["slab_f32"] = (cfg, params, *examples.replicate_rays(v0, st, pwr, n_rays))
     cfg, params, v0, st, pwr = runner.setup(examples.write_mirror_example(
         _subdir(directory, "mirror_damped"), text=MIRROR_DAMPED), device=device)
     base["mirror_damped_rk4"] = (cfg, params, *examples.replicate_rays(v0, st, pwr, n_rays))
+    cfg, params, v0, st, pwr = examples.setup_example(examples.SLAB_ECH_DAMPED, device=device)
+    base["slab_damped"] = (cfg, params, *examples.replicate_rays(v0, st, pwr, n_rays))
     out = {}
-    for name, (which, changes) in GRAPH_CASES.items():
+    for name, (which, changes) in table.items():
         cfg, *rest = base[which]
         out[name] = (dataclasses.replace(cfg, save_trajectory=True, **changes), *rest)
     return out
+
+
+def graph_cases(device, n_rays, directory):
+    """The cases of GRAPH_CASES (``_cases``)."""
+    return _cases(device, n_rays, directory, GRAPH_CASES)
+
+
+def adjoint_cases(device, n_rays, directory):
+    """The cases of ADJOINT_CASES (``_cases``)."""
+    return _cases(device, n_rays, directory, ADJOINT_CASES)
 
 
 def step_window(case, steps, device, tracer=trace_batch):
@@ -154,6 +186,41 @@ def step_window(case, steps, device, tracer=trace_batch):
             "busy_share": device_us / wall, "quantiles": full.quantiles(),
             "top": [(n, us / steps, c / steps) for n, us, c in full.top(8)],
             "profiled": bool(full.kernels), "first_s": first, "again_s": again}
+
+
+def vjp_window(case, steps, device, tracer=trace_batch):
+    """One outer step's backward pass: the backward of a run of
+    ``2 steps`` outer steps less that of ``steps`` (the loss of
+    ``bench.py``'s adjoint rows, every floating Params leaf), after a
+    warm-up of both (for the graphed adjoint, their captures): {kernels,
+    copies, device_us, wall_us, profiled_wall_us per outer step, busy
+    share, quantiles, top kernels, profiled}.  Each backward's forward runs
+    before its window, outside it."""
+    cfg, params, v, s, w = case
+
+    def backward(n):
+        c = dataclasses.replace(cfg, nstep_max=n)
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(t.is_floating_point()), params)
+        res = tracer(c, p, v, s, w)
+        loss = (res.end_ray_vec[:, 0:3] ** 2 * res.initial_ray_power[:, None]).sum()
+        leaves = [t for t in tree_leaves(p) if t.requires_grad]
+        return lambda: torch.autograd.grad(loss, leaves, allow_unused=True,
+                                           materialize_grads=True)
+
+    for n in (steps, 2 * steps):
+        backward(n)()
+    wall = ((measure.host_s(backward(2 * steps), device)[0]
+             - measure.host_s(backward(steps), device)[0]) * 1e6 / steps)
+    short = measure.profile(backward(steps), device)
+    full = measure.profile(backward(2 * steps), device)
+    device_us = (full.busy_us - short.busy_us) / steps
+    return {"kernels": (len(full.kernels) - len(short.kernels)) / steps,
+            "copies": (len(full.copies) - len(short.copies)) / steps,
+            "device_us": device_us, "wall_us": wall,
+            "profiled_wall_us": (full.wall_us - short.wall_us) / steps,
+            "busy_share": device_us / wall, "quantiles": full.quantiles(),
+            "top": [(n, us / steps, c / steps) for n, us, c in full.top(8)],
+            "profiled": bool(full.kernels)}
 
 
 def graph_window(case, steps, device):
@@ -251,9 +318,9 @@ def _window_line(wnd, census, tracer, case, steps, dev):
             f"kernel us min {q[0]:.2f} median {q[1]:.2f} p90 {q[2]:.2f} max {q[3]:.2f}{top}")
 
 
-def run(device="cuda", n_rays=N_RAYS, steps=STEPS, log=print):
-    """Every section; returns (report lines, {"b1_ops", "census", "windows",
-    "b1", "calls"})."""
+def run(device="cuda", n_rays=N_RAYS, steps=STEPS, log=print, vjp_paths=VJP_PATHS):
+    """Every section, section 4 on ``vjp_paths``; returns (report lines,
+    {"b1_ops", "census", "windows", "graphs", "b1", "calls", "vjp"})."""
     dev = measure.open_device(device)
     cuda = dev.type == "cuda"
     card = measure.card_line(dev)
@@ -337,8 +404,40 @@ def run(device="cuda", n_rays=N_RAYS, steps=STEPS, log=print):
                     f"sustained); implied fixed cost per call {(one - five) * 1e3:.3f} ms")
     else:
         say("not measured (cpu run; B1 runs only on the card)")
+
+    # --- 4. one outer step's VJP ---
+    say()
+    say(f"# 4. One outer step's backward pass, the backward of {2 * steps} outer steps less "
+        f"that of {steps}, {n_rays} rays, f64, trajectories on ({card})")
+    vjp = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = adjoint_cases(dev, n_rays, tmp)
+    for name in vjp_paths:
+        tracers = {"eager": trace_batch, "graphed": trace_rays} if cuda else {
+            "eager": trace_batch}
+        for tag, tracer in tracers.items():
+            wnd = vjp[(name, tag)] = vjp_window(cases[name], steps, dev, tracer)
+            if not cuda:
+                say(f"{name} {tag}: host {wnd['wall_us'] / 1e3:.3f} ms per outer step's "
+                    f"backward (cpu run: device time not measured)")
+                continue
+            if not wnd["profiled"]:
+                say(f"{name} {tag}: torch.profiler showed no device time; wall "
+                    f"{wnd['wall_us'] / 1e3:.3f} ms per outer step's backward")
+                continue
+            q = wnd["quantiles"]
+            say(f"{name} {tag} (route {route(cases[name][0], True, dev)}): CUDA kernels per "
+                f"outer step's backward {wnd['kernels']:.1f} (copies {wnd['copies']:.1f}); device "
+                f"{wnd['device_us'] / 1e3:.3f} ms of {wnd['wall_us'] / 1e3:.3f} ms (profiled: "
+                f"{wnd['profiled_wall_us'] / 1e3:.3f} ms), busy share {wnd['busy_share']:.4f}; "
+                f"kernel us min {q[0]:.2f} median {q[1]:.2f} p90 {q[2]:.2f} max {q[3]:.2f}"
+                + "".join(f"\n    {us:9.2f} us {c:6.1f} calls per step  {k[:90]}"
+                          for k, us, c in wnd["top"]))
+        if not cuda:
+            say(f"{name} graphed: not measured (cpu run; the graphs exist only on a card)")
+    del cases
     return lines, {"b1_ops": b1_ops, "census": census, "windows": windows, "graphs": graphs,
-                   "b1": b1, "calls": calls}
+                   "b1": b1, "calls": calls, "vjp": vjp}
 
 
 def main(argv=None):
