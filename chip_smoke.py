@@ -18,30 +18,44 @@ every kernel library, runs in every call):
   (32,768 rays x 500 steps, f64 and f32, timed against the plain twin and
   its bound, the card filled at 524,288 rays, the CLI); the damped example
   through the kernel and the damped batch (32,768 rays x 400 steps).
-* graph, phase 29: every path that trace_rays sends to the graphed tracer
-  (tracing/graphed.py: the slab under RK4 with the equilibrium-gradient
-  slots, with the autodiff derivatives, under SG with a fixed substep
-  budget and with its loop; Solovev under SG and RK4; the EQDSK tokamak;
-  the damped mirror; the compensated float32 carry) at GRAPH_RAYS rays x
-  GRAPH_STEPS steps with trajectories, against its eager trace_batch bit
-  for bit on every field, twice (the second call replays the first call's
-  capture with the inputs copied in again), with the captures and replays
-  counted and the one-off capture timed.
-* adjoint, phases 30, 9, 13 and 16, every one through the graphed adjoint
-  (tracing/graphed_adjoint.py: each outer step and its VJP captured once
-  as CUDA graphs, the backward replaying the VJP last step first).  30:
-  every configuration of that route (RK4 on the slab, damped slab, slab
-  with the equilibrium-gradient slots, Solovev, EQDSK and damped mirror;
-  SG with a fixed substep budget on the slab; the compensated float32
-  carry) at ADJOINT_RAYS rays x ADJOINT_STEPS steps with
-  trajectories, the loss and every gradient held to eager autograd
+* graph, phases 29, 31, 32 and 34.  29: every path that trace_rays sends
+  to the graphed tracer (tracing/graphed.py: the slab under RK4 with the
+  equilibrium-gradient slots, with the autodiff derivatives, under SG
+  with a fixed substep budget and with its loop; Solovev under SG and
+  RK4; the EQDSK tokamak; the damped mirror; the compensated float32
+  carry) at GRAPH_RAYS rays x GRAPH_STEPS steps with trajectories, against
+  its eager trace_batch bit for bit on every field, twice (the second
+  call replays the first call's capture with the inputs copied in
+  again), with the captures and replays counted and the one-off capture
+  timed.  31: the same configs with forward-mode tangents through the
+  tangent graph (tracing/graphed_tangent.py; the autodiff derivatives
+  stay plain) against eager forward AD: the primal bit for bit, the
+  tangents within TANGENT_RTOL of scale.  32: the inverse demo's two
+  forward-mode columns at N_RAYS rays x INVERSE_STEPS steps, graphed
+  against eager, with ms and peak GiB.  34: the slab module registered
+  under a new name through the graph route, the adjoint graph and the
+  tangent graph, each against its eager twin, and under "slab" through
+  the graph route, not B1; a model that reads the host refused by name
+  before any capture.
+* adjoint, phases 30, 33, 9, 13 and 16, every one through the graphed
+  adjoint (tracing/graphed_adjoint.py: each outer step and its VJP
+  captured once as CUDA graphs, the backward replaying the VJP last step
+  first).  30: every configuration of that route (RK4 on the slab, damped
+  slab, slab with the equilibrium-gradient slots, Solovev, EQDSK and
+  damped mirror; SG with a fixed substep budget on the slab; the
+  compensated float32 carry) at ADJOINT_RAYS rays x ADJOINT_STEPS steps
+  with trajectories, the loss and every gradient held to eager autograd
   through trace_batch (ADJOINT_RTOL of each leaf's scale), the forward bit
-  for bit.  9: the training step of __graft_entry__.py (32,768 damped rays
-  x 400 steps, trajectories on, forward, backward and a finite-difference
-  check through the kernel); 13: the adaptive training step (100 outer
-  steps x 2 masked substeps); 16: the EQDSK adjoint (100 RK4 steps, the
-  psi cell table among the leaves).  Each prints its route and is timed at
-  its second call, the first capturing it.
+  for bit.  33: backwards whose cache entry was evicted before they ran
+  (one loss over five step counts; a forward, four other captures, then
+  the backward), each entry captured again by its backward, the
+  gradients held to eager autograd.  9: the training step of
+  __graft_entry__.py (32,768 damped rays x 400 steps, trajectories on,
+  forward, backward and a finite-difference check through the kernel);
+  13: the adaptive training step (100 outer steps x 2 masked substeps);
+  16: the EQDSK adjoint (100 RK4 steps, the psi cell table among the
+  leaves).  Each prints its route and is timed at its second call, the
+  first capturing it.
 * plain, phases 10-12: the Solovev tokamak fan under the adaptive stepper
   (the example against the same code on the CPU, the CLI, 32,768 rays x
   200 outer steps, RK4 at f64 and f32) and the slab under the adaptive
@@ -75,8 +89,10 @@ every kernel library, runs in every call):
   all_reduced profile against the unsplit run) and
   entry.dryrun_multiprocess(2), two processes on the one card over gloo;
   24 the compensated carry (f32, 32,768 rays x 100 steps, graph route) and
-  the inverse demo at its start, card against CPU (INVERSE_STEPS RK4
-  steps; the default call cuts them to INVERSE_STEPS_DEFAULT and says so).
+  the inverse demo at its start, card against CPU, its time split into
+  the loss (graph route), the gradient (adjoint graph) and each
+  forward-mode column (tangent graph) (INVERSE_STEPS RK4 steps; the
+  default call cuts them to INVERSE_STEPS_DEFAULT and says so).
   The batch and RK4 ds scans run alone on the card; the SG ladder,
   validate_all and the dry run then run as processes of their own beside
   phases 22-24.
@@ -174,6 +190,13 @@ ADJOINT_RAYS = 4096     # phase 30: each graphed adjoint against eager autograd
 ADJOINT_STEPS = 50
 ADJOINT_RTOL = 1e-10    # of each leaf's largest eager gradient, f64
 ADJOINT_RTOL_F32 = 2e-6     # ... f32: 16 ulp (the steps summed in another order)
+TANGENT_RTOL = 1e-10    # phases 31, 32, 34: tangents of their eager scale, f64
+TANGENT_RTOL_F32 = 2e-6     # ... f32
+# phase 31 in the default call: the SG loop form on Solovev at fewer steps
+# (its eager forward-AD twin took 93.1 s at GRAPH_STEPS on an H100 80GB HBM3, 700 W)
+TANGENT_STEPS_DEFAULT = {"solovev_sg": 20}
+EVICT_RAYS = 1024       # phase 33: the programs whose backward outlives its cache entry
+EVICT_STEPS = 20
 # post-processing (phases 17-19): the rays the CPU recomputes, and the
 # tolerances of tests/test_torch_post_*.py for the card against the CPU
 N_HOST_CHECK = 64
@@ -1386,6 +1409,383 @@ def adjoint_phase(run):
           f"{card}")
 
 
+def tangent_direction(params, v, w, seed):
+    """A tangent for every floating Params leaf, v0 and pwr_wt: each
+    tensor times N(0, 1) entries from a numpy seed, on its device."""
+    from rays_tpu_torch.core.types import tree_map
+
+    rng = np.random.default_rng(seed)
+
+    def draw(t):
+        return t * torch.as_tensor(rng.standard_normal(tuple(t.shape)), dtype=t.dtype,
+                                   device=t.device)
+
+    return (tree_map(lambda t: draw(t) if t.is_floating_point() else None, params),
+            draw(v), draw(w))
+
+
+def traced_tangents(tracer, cfg, params, v, st, w, direction):
+    """{field: (primal, tangent or None)} of ``tracer`` on dual inputs
+    along ``direction``, without gradients."""
+    import torch.autograd.forward_ad as fwAD
+
+    from rays_tpu_torch.core.types import tree_map
+    from rays_tpu_torch.tracing.trace import RayResults
+
+    dp, dv, dw = direction
+    with fwAD.dual_level(), torch.no_grad():
+        p = tree_map(lambda t, d: t if d is None else fwAD.make_dual(t, d), params, dp)
+        res = tracer(cfg, p, fwAD.make_dual(v, dv), st, fwAD.make_dual(w, dw))
+        return {f: tuple(fwAD.unpack_dual(t)) for f, t in zip(RayResults._fields, res)
+                if t is not None}
+
+
+def tangent_errors(got, ref, what):
+    """Require every primal bit for bit equal to ``ref``'s and return the
+    worst tangent difference over its field's scale (an absent tangent is
+    zero)."""
+    worst = 0.0
+    for f, (p, t) in ref.items():
+        gp, gt = got[f]
+        require(torch.equal(gp, p), f"{what}: the primal of {f} differs")
+        if not p.is_floating_point():
+            continue
+        r = torch.zeros_like(p) if t is None else t
+        g = torch.zeros_like(gp) if gt is None else gt
+        scale = float(r.abs().max()) if r.numel() else 0.0
+        err = float((g - r).abs().max()) if r.numel() else 0.0
+        require(bool(torch.isfinite(g).all()), f"{what}: non-finite tangent of {f}")
+        worst = max(worst, err / scale if scale else err)
+    return worst
+
+
+def tangent_phase(run, full):
+    """Phase 31: every config of the graph route that the tangent graph
+    takes, against eager forward AD through trace_batch on the card, at
+    GRAPH_RAYS rays x GRAPH_STEPS steps with trajectories, along a tangent
+    on every floating Params leaf, v0 and pwr_wt: trace_rays (captured at
+    the first call, replayed at the second) with the primal of every field
+    bit for bit and the tangents within TANGENT_RTOL of scale.  ``full``:
+    every config at GRAPH_STEPS, else those of TANGENT_STEPS_DEFAULT at
+    their cut depth (the line says so)."""
+    from rays_tpu_torch.tracing import fused_slab, graphed_tangent
+    from rays_tpu_torch.tracing.trace import route, trace_batch, trace_rays
+
+    card, dev = run.card, run.dev
+    sp = _tool("step_profile")
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = sp.graph_cases(dev, GRAPH_RAYS, tmp)
+    t_phase = time.perf_counter()
+    for name, (cfg, params, v, st, w) in cases.items():
+        steps, cut = GRAPH_STEPS, ""
+        if not full and name in TANGENT_STEPS_DEFAULT:
+            steps = TANGENT_STEPS_DEFAULT[name]
+            cut = (f" (cut from {GRAPH_STEPS} to {steps} steps in the default call; "
+                   f"--group graph runs all)")
+        cfg = dataclasses.replace(cfg, nstep_max=steps)
+        which = route(cfg, False, dev, tangents=True)
+        why = graphed_tangent.refusal(cfg)
+        if why is not None:
+            require(which == "plain", f"{name}: route {which} for a refused config")
+            print(f"phase 31 {name}: route {which} ({why})")
+            continue
+        require(which == "tangent", f"{name}: route {which}, not the tangent graph")
+        direction = tangent_direction(params, v, w, seed=31)
+        traced_tangents(trace_batch, dataclasses.replace(cfg, nstep_max=2), params, v, st, w,
+                        direction)  # warm-up
+        eager_ms, ref = timed(lambda: traced_tangents(trace_batch, cfg, params, v, st, w,
+                                                      direction))
+        c0, r0, l0 = graphed_tangent.CAPTURES, graphed_tangent.REPLAYS, fused_slab.LAUNCHES
+        first_ms, first = timed(lambda: traced_tangents(trace_rays, cfg, params, v, st, w,
+                                                        direction))
+        c1, r1 = graphed_tangent.CAPTURES, graphed_tangent.REPLAYS
+        second_ms, second = timed(lambda: traced_tangents(trace_rays, cfg, params, v, st, w,
+                                                          direction))
+        require(c1 - c0 == 1 and graphed_tangent.CAPTURES == c1,
+                f"{name}: {graphed_tangent.CAPTURES - c0} captures in two calls")
+        require(fused_slab.LAUNCHES == l0, f"{name}: the tangent graph launched B1")
+        loop_form = cfg.ode_solver_name == "SG_ODE" and cfg.sg_scan_substeps == 0
+        per_call = (r1 - r0, graphed_tangent.REPLAYS - r1)
+        require(per_call[0] == per_call[1] and (
+            per_call[0] >= 2 * steps if loop_form else per_call[0] == steps),
+            f"{name}: replays per call {per_call}")
+        rtol = TANGENT_RTOL if v.dtype == torch.float64 else TANGENT_RTOL_F32
+        worst = max(tangent_errors(got, ref, f"{name} {tag} call")
+                    for tag, got in (("first", first), ("second", second)))
+        require(worst <= rtol, f"{name}: tangents differ by {worst:.3e} of scale (bound {rtol})")
+        require(float(ref["end_ray_vec"][1].abs().max()) > 0, f"{name}: zero tangents")
+        print(f"phase 31 {name} {GRAPH_RAYS} rays x {steps} steps{cut} "
+              f"{str(v.dtype).replace('torch.', '')}, route {which}: primal equal to eager "
+              f"forward AD bit for bit on every field, tangents within {worst:.3e} of scale "
+              f"(bound {rtol}), both calls; 1 capture, {per_call[0]} replays a call; eager "
+              f"{eager_ms:.1f} ms, graphed {second_ms:.1f} ms (x{eager_ms / second_ms:.2f}), "
+              f"first call {first_ms:.1f} ms (capture {first_ms - second_ms:.1f} ms)")
+        run.paths.append({"name": f"tangent_{name}", "route": which, "steps": steps,
+                          "ms": second_ms,
+                          "eager_ms": eager_ms, "capture_ms": first_ms - second_ms,
+                          "replays": per_call[0], "worst_tangent_rel": worst})
+    print(f"phase 31 tangent graphs held to eager forward AD in "
+          f"{time.perf_counter() - t_phase:.1f} s; graphed_tangent.CAPTURES "
+          f"{graphed_tangent.CAPTURES}, REPLAYS {graphed_tangent.REPLAYS} in this process on "
+          f"{card}")
+
+
+def inverse_columns_phase(run):
+    """Phase 32: the inverse demo's two forward-mode columns at full width:
+    its config (Solovev, RK4, trajectories, INVERSE_STEPS steps) on its
+    fan replicated to N_RAYS rays, each column through the tangent graph
+    (trace_rays; the first column's call captures) and eagerly
+    (trace_batch), timed by CUDA events with the peak memory of each
+    call; the primal bit for bit, the tangents within TANGENT_RTOL."""
+    import torch.autograd.forward_ad as fwAD
+
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.tracing import graphed_tangent
+    from rays_tpu_torch.tracing.trace import route, trace_batch, trace_rays
+
+    card, dev = run.card, run.dev
+    inv = _tool("inverse_demo")
+    prob = inv.InverseProblem(INVERSE_STEPS, str(dev))
+    cfg = prob.cfg
+    v, st, w = examples.replicate_rays(prob.v0, prob.st, prob.pwr, N_RAYS)
+    require(route(cfg, False, dev, tangents=True) == "tangent", "the columns' route")
+
+    def column(tracer, i):
+        tangent = torch.zeros_like(prob.start)
+        tangent[i] = 1.0
+        with fwAD.dual_level(), torch.no_grad():
+            th = fwAD.make_dual(prob.start, tangent)
+            p = prob.params._replace(eq=prob.params.eq._replace(kappa=th[0], iota0=th[1]))
+            r, t = fwAD.unpack_dual(tracer(cfg, p, v, st, w).ray_vec[:, :, 0:3])
+        return r, t
+
+    t_phase = time.perf_counter()
+    c0 = graphed_tangent.CAPTURES
+    rows = {}
+    for i in (0, 1):
+        eager_ms, ref, eager_peak = timed_peak(lambda: column(trace_batch, i))
+        graphed_ms, got, peak = timed_peak(lambda: column(trace_rays, i))
+        require(torch.equal(got[0], ref[0]), f"column {i}: the trajectories differ")
+        scale = float(ref[1].abs().max())
+        err = float((got[1] - ref[1]).abs().max())
+        require(scale > 0 and err <= TANGENT_RTOL * scale,
+                f"column {i}: tangents differ by {err:.3e} of scale {scale:.3e}")
+        rows[i] = (eager_ms, eager_peak, graphed_ms, peak, err / scale)
+    again_ms, _, _ = timed_peak(lambda: column(trace_rays, 0))
+    require(graphed_tangent.CAPTURES - c0 == 1,
+            f"{graphed_tangent.CAPTURES - c0} captures for the two columns")
+    for i, (eager_ms, eager_peak, graphed_ms, peak, rel) in rows.items():
+        first = " (first call, with the capture)" if i == 0 else ""
+        print(f"phase 32 inverse demo column {i}, {N_RAYS} rays x {INVERSE_STEPS} RK4 steps f64 "
+              f"with trajectories: graphed {graphed_ms:.1f} ms{first}, {peak / 2**30:.2f} GiB; "
+              f"eager {eager_ms:.1f} ms, {eager_peak / 2**30:.2f} GiB; trajectories bit for bit, "
+              f"tangents within {rel:.3e} of scale (bound {TANGENT_RTOL})")
+    print(f"phase 32 column 0 again {again_ms:.1f} ms (replayed; x{rows[0][0] / again_ms:.2f} "
+          f"the eager column); in {time.perf_counter() - t_phase:.1f} s on {card}")
+    run.paths.append({"name": "inverse_columns", "route": "tangent", "rays": N_RAYS,
+                      "steps": INVERSE_STEPS, "ms": [rows[0][2], rows[1][2], again_ms],
+                      "eager_ms": [rows[0][0], rows[1][0]],
+                      "peak_gib": [rows[0][3] / 2**30, rows[1][3] / 2**30],
+                      "eager_peak_gib": [rows[0][1] / 2**30, rows[1][1] / 2**30]})
+
+
+def eviction_phase(run):
+    """Phase 33: a backward whose adjoint graph was evicted from the cache
+    before it ran (ROADMAP C10, repaired by capturing it again).  (a) One
+    loss summed over five step counts of the damped slab (five cache keys
+    for graphed.CACHE_SIZE places); (b) a forward with gradients, then
+    four no-grad runs of other configs through the graph route, then the
+    backward.  At EVICT_RAYS rays; the loss bit for bit and every gradient
+    within ADJOINT_RTOL of eager autograd's through trace_batch."""
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.core.types import tree_leaves, tree_map
+    from rays_tpu_torch.tracing import graphed, graphed_adjoint
+    from rays_tpu_torch.tracing.trace import route, trace_batch, trace_rays
+
+    card, dev = run.card, run.dev
+    cfg, params, v, st, w = examples.setup_example(examples.SLAB_ECH_DAMPED, device=dev)
+    v, st, w = examples.replicate_rays(v, st, w, EVICT_RAYS)
+    cfg = dataclasses.replace(cfg, save_trajectory=True)
+    require(graphed.CACHE_SIZE < 5, f"a cache of {graphed.CACHE_SIZE} holds five entries")
+
+    def with_grad():
+        return tree_map(lambda t: t.detach().clone().requires_grad_(t.is_floating_point()),
+                        params)
+
+    def loss_of(res):
+        return (res.end_ray_vec[:, :6] ** 2).sum() + res.ray_vec.sum() + res.max_residuals.sum()
+
+    def grads(loss, p):
+        return torch.autograd.grad(loss, [t for t in tree_leaves(p) if t.is_floating_point()],
+                                   allow_unused=True, materialize_grads=True)
+
+    def worst_of(got, ref, what):
+        worst = 0.0
+        for i, (g, r) in enumerate(zip(got, ref)):
+            scale = float(r.abs().max()) if r.numel() else 0.0
+            err = float((g - r).abs().max()) if r.numel() else 0.0
+            require(bool(torch.isfinite(g).all()) and err <= ADJOINT_RTOL * scale,
+                    f"{what}: gradient {i} differs by {err:.3e} of scale {scale:.3e}")
+            worst = max(worst, err / scale if scale else 0.0)
+        return worst
+
+    steps = [EVICT_STEPS + i for i in range(6)]
+    cfgs = [dataclasses.replace(cfg, nstep_max=n) for n in steps[:5]]
+    require(all(route(c, True, dev) == "adjoint" for c in cfgs), "expected the adjoint graph")
+    t0 = time.perf_counter()
+    c0 = graphed_adjoint.CAPTURES
+    p = with_grad()
+    loss = sum(loss_of(trace_rays(c, p, v, st, w)) for c in cfgs)
+    forward_captures = graphed_adjoint.CAPTURES - c0
+    got = grads(loss, p)
+    backward_captures = graphed_adjoint.CAPTURES - c0 - forward_captures
+    q = with_grad()
+    ref = sum(loss_of(trace_batch(c, q, v, st, w)) for c in cfgs)
+    require(torch.equal(loss.detach(), ref.detach()), "the summed loss differs from eager")
+    require(forward_captures == 5 and backward_captures == 1,
+            f"captures: {forward_captures} forward, {backward_captures} backward")
+    worst = worst_of(got, grads(ref, q), "five configs")
+    print(f"phase 33 one loss over five step counts {steps[:5]} (damped slab, {EVICT_RAYS} rays, "
+          f"cache of {graphed.CACHE_SIZE}): 5 captures forward, 1 in the backward (the first "
+          f"config's, evicted by the fifth); loss equal to eager's bit for bit, {len(got)} "
+          f"gradients within {worst:.3e} of scale (bound {ADJOINT_RTOL}); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) on a sixth step count, whose entry no call has made yet
+    t0 = time.perf_counter()
+    c0 = graphed_adjoint.CAPTURES
+    last = dataclasses.replace(cfg, nstep_max=steps[5])
+    p = with_grad()
+    loss = loss_of(trace_rays(last, p, v, st, w))
+    sg = dataclasses.replace(cfg, ode_solver_name="SG_ODE", sg_scan_substeps=0)
+    g0 = graphed.CAPTURES
+    with torch.no_grad():
+        for n in steps[1:5]:
+            c = dataclasses.replace(sg, nstep_max=n)
+            require(route(c, False, dev) == "graph", "expected the graph route")
+            trace_rays(c, params, v, st, w)
+    require(graphed.CAPTURES - g0 == 4, f"{graphed.CAPTURES - g0} graph captures, not 4")
+    key = ("adjoint", *graphed.cache_key(last, p, v))
+    require(key not in graphed._CACHE, "the forward's entry was not evicted")
+    got = grads(loss, p)
+    require(graphed_adjoint.CAPTURES - c0 == 2, f"{graphed_adjoint.CAPTURES - c0} captures")
+    q = with_grad()
+    ref = loss_of(trace_batch(last, q, v, st, w))
+    require(torch.equal(loss.detach(), ref.detach()), "the loss differs from eager")
+    worst = worst_of(got, grads(ref, q), "backward after four graph captures")
+    print(f"phase 33 a forward with gradients, four no-grad SG runs through the graph route, "
+          f"then the backward: its entry evicted and captured again in the backward; "
+          f"{len(got)} gradients within {worst:.3e} of scale (bound {ADJOINT_RTOL}); "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+
+
+def registered_model_phase(run):
+    """Phase 34: a model of the caller's own on the card.  The built-in
+    slab module registered under a new name takes the graph route, the
+    adjoint graph and the tangent graph, each held to its eager twin at
+    GRAPH_RAYS rays x GRAPH_STEPS steps; registered under "slab" it takes
+    the graph route, not B1; a model that reads the host is refused with a
+    ValueError naming it before anything is captured."""
+    import types
+
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.core.types import tree_leaves, tree_map
+    from rays_tpu_torch.models import base, slab
+    from rays_tpu_torch.tracing import fused_slab, graphed, graphed_adjoint, graphed_tangent
+    from rays_tpu_torch.tracing.trace import RayResults, route, trace_batch, trace_rays
+
+    card, dev = run.card, run.dev
+    cfg, params, v, st, w = examples.setup_example(device=dev)
+    v, st, w = examples.replicate_rays(v, st, w, GRAPH_RAYS)
+    cfg = dataclasses.replace(cfg, nstep_max=GRAPH_STEPS, save_trajectory=True)
+    t0 = time.perf_counter()
+    l0 = fused_slab.LAUNCHES
+    lines = []
+    for name in ("slab_registered", "slab"):
+        c = dataclasses.replace(cfg, equilib_model=name)
+        base.register_eq_model(name, slab)
+        try:
+            require(not fused_slab.supported(c), f"B1 takes the registered {name!r}")
+            which = [route(c, False, dev), route(c, True, dev), route(c, False, dev, tangents=True)]
+            require(which == ["graph", "adjoint", "tangent"], f"{name!r}: routes {which}")
+            with torch.no_grad():
+                ref = trace_batch(c, params, v, st, w)
+                got = trace_rays(c, params, v, st, w)
+            bad = [f for f, g, r in zip(RayResults._fields, got, ref)
+                   if (g is None) != (r is None) or (r is not None and not torch.equal(g, r))]
+            require(not bad, f"{name!r}: graphed fields {bad} differ from trace_batch's")
+            if name != "slab_registered":
+                lines.append(f"under {name!r}: graph route bit for bit")
+                continue
+            p, q = (tree_map(lambda t: t.detach().clone().requires_grad_(t.is_floating_point()),
+                             params) for _ in range(2))
+            losses, grads = [], []
+            for tracer, pp in ((trace_rays, p), (trace_batch, q)):
+                loss = (tracer(c, pp, v, st, w).end_ray_vec[:, :6] ** 2).sum()
+                losses.append(loss.detach())
+                grads.append(torch.autograd.grad(
+                    loss, [t for t in tree_leaves(pp) if t.is_floating_point()],
+                    allow_unused=True, materialize_grads=True))
+            require(torch.equal(*losses), f"{name!r}: the adjoint graph's loss differs")
+            worst = 0.0
+            for g, r in zip(*grads):
+                scale, err = float(r.abs().max()), float((g - r).abs().max())
+                require(err <= ADJOINT_RTOL * scale, f"{name!r}: gradient differs by {err:.3e}")
+                worst = max(worst, err / scale if scale else 0.0)
+            direction = tangent_direction(params, v, w, seed=34)
+            tworst = tangent_errors(
+                traced_tangents(trace_rays, c, params, v, st, w, direction),
+                traced_tangents(trace_batch, c, params, v, st, w, direction), name)
+            require(tworst <= TANGENT_RTOL, f"{name!r}: tangents differ by {tworst:.3e}")
+            lines.append(f"under {name!r}: graph route bit for bit, adjoint gradients within "
+                         f"{worst:.3e} of scale, tangents within {tworst:.3e}")
+        finally:
+            base.EQ_MODELS.pop(name)
+    require(fused_slab.LAUNCHES == l0, "a registered model launched B1")
+
+    def fields_and_jac(static, p, species, rvec):
+        if rvec[:, 0].max().item() > 1e9:     # a host read
+            fail("unreachable")
+        return slab.fields_and_jac(static, p, species, rvec)
+
+    reader = types.SimpleNamespace(fields=slab.fields, geom_err=slab.geom_err, err=slab.err,
+                                   fields_and_jac=fields_and_jac)
+    c = dataclasses.replace(cfg, equilib_model="host_reader")
+    base.register_eq_model("host_reader", reader)
+    refused = []
+    try:
+        counts = lambda: (graphed.CAPTURES, graphed_adjoint.CAPTURES,   # noqa: E731
+                          graphed_tangent.CAPTURES)
+        before = counts()
+        for kind in ("graph", "adjoint", "tangent"):
+            try:
+                if kind == "graph":
+                    with torch.no_grad():
+                        trace_rays(c, params, v, st, w)
+                elif kind == "adjoint":
+                    p = tree_map(lambda t: t.detach().clone().requires_grad_(
+                        t.is_floating_point()), params)
+                    trace_rays(c, p, v, st, w)
+                else:
+                    traced_tangents(trace_rays, c, params, v, st, w,
+                                    tangent_direction(params, v, w, seed=35))
+            except ValueError as e:
+                require("'host_reader'" in str(e) and "_local_scalar_dense" in str(e),
+                        f"{kind}: refused without the model's name: {e}")
+                refused.append(kind)
+            else:
+                fail(f"the host-reading model was not refused on the {kind} route")
+        require(counts() == before, f"captures {before} -> {counts()} for a refused model")
+        require(not any(k[1] == c for k in graphed._CACHE), "a refused model has an entry")
+    finally:
+        base.EQ_MODELS.pop("host_reader")
+    print(f"phase 34 registered models, {GRAPH_RAYS} rays x {GRAPH_STEPS} steps f64: the slab "
+          f"module " + "; ".join(lines) + f"; B1 not launched; a host-reading model refused "
+          f"before any capture on the {', '.join(refused)} routes, its name in the ValueError; "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+
+
+
 def post_main_path_phase(run):
     """Phase 17: the main path's post-processing at full width.  Kernel B1
     (damped, f64) traces the damped example's 32,768 rays x 400 steps with
@@ -1980,19 +2380,28 @@ def compensated_phase(run):
 
 def inverse_phase(run, steps):
     """Phase 24: the inverse demo at its starting point on the card
-    against the CPU, and a few of its iterations timed, at ``steps`` of
-    its INVERSE_STEPS RK4 steps."""
+    against the CPU, the start's time split into the loss, its gradient
+    and each forward-mode column (each route's first call, with its
+    capture), and a few of its iterations timed, at ``steps`` of its
+    INVERSE_STEPS RK4 steps."""
     inv = _tool("inverse_demo")
     dev = run.dev
     t0 = time.perf_counter()
     card = inv.start_point(nstep_max=steps, device=str(dev))
     t_start = time.perf_counter() - t0
+    routes = card["routes"]
+    require(routes == {"loss": "graph", "gradient": "adjoint", "columns": "tangent"},
+            f"inverse demo routes {routes}")
     host = inv.InverseProblem(steps, "cpu")
     loss_h, grad_h = host.value_and_grad(host.start)
+    _, j0_h, j1_h = host.jvp_columns(host.start)
     loss_err = abs(float(card["loss"]) - float(loss_h)) / abs(float(loss_h))
     grad_err = float((card["grad"].cpu() - grad_h).abs().max() / grad_h.abs().max())
-    require(loss_err <= INVERSE_RTOL and grad_err <= INVERSE_RTOL,
-            f"inverse demo start, card vs CPU: loss {loss_err:.3e}, gradient {grad_err:.3e}")
+    col_err = max(float((card[k].cpu() - h).abs().max() / h.abs().max())
+                  for k, h in (("j0", j0_h), ("j1", j1_h)))
+    require(loss_err <= INVERSE_RTOL and grad_err <= INVERSE_RTOL and col_err <= INVERSE_RTOL,
+            f"inverse demo start, card vs CPU: loss {loss_err:.3e}, gradient {grad_err:.3e}, "
+            f"columns {col_err:.3e}")
     require(bool(torch.isfinite(card["j0"]).all() and torch.isfinite(card["j1"]).all()),
             "non-finite Jacobian columns")
     lines = []
@@ -2003,14 +2412,17 @@ def inverse_phase(run, steps):
     require(all(np.isfinite(h[0]) for h in out["history"]), "non-finite demo loss")
     cut = (f" (cut from {INVERSE_STEPS} to fit the default run; --group tools runs all)"
            if steps < INVERSE_STEPS else "")
+    split = ", ".join(f"{k} {v:.2f} s" for k, v in card["seconds"].items())
     print(f"phase 24 inverse demo ({card['target'].shape[0]} rays x {steps} RK4 steps{cut}) "
           f"at its start on {dev}: loss {float(card['loss']):.12e}, gradient "
-          f"{card['grad'].tolist()} (routes: gradient {card['routes']['gradient']}, forward-mode "
-          f"columns {card['routes']['columns']}), equal to the CPU's within {loss_err:.3e} and "
-          f"{grad_err:.3e} of scale (bound {INVERSE_RTOL}); loss, gradient and the two "
-          f"forward-mode columns {t_start:.2f} s; {INVERSE_ITERS} Adam iterations "
-          f"{t_demo:.2f} s (losses {[f'{h[0]:.3e}' for h in out['history']]})")
+          f"{card['grad'].tolist()} (routes: loss {routes['loss']}, gradient "
+          f"{routes['gradient']}, columns {routes['columns']}), equal to the CPU's within "
+          f"{loss_err:.3e}, {grad_err:.3e} and {col_err:.3e} (columns) of scale (bound "
+          f"{INVERSE_RTOL}); the start {t_start:.2f} s: {split} (each the route's first call, "
+          f"its capture included); {INVERSE_ITERS} Adam iterations {t_demo:.2f} s (losses "
+          f"{[f'{h[0]:.3e}' for h in out['history']]})")
     run.paths.append({"name": "inverse_demo", "ms": t_demo * 1e3, "start_ms": t_start * 1e3,
+                      "start_split_ms": {k: v * 1e3 for k, v in card["seconds"].items()},
                       "steps": steps, "iterations": INVERSE_ITERS})
 
 
@@ -2289,8 +2701,12 @@ def main(argv=None):
     kernels = kernel_phases(run) if "kernel" in groups else None
     if "graph" in groups:
         graph_phase(run)
+        tangent_phase(run, not every)
+        inverse_columns_phase(run)
+        registered_model_phase(run)
     if "adjoint" in groups:
         adjoint_phase(run)
+        eviction_phase(run)
         training_phase(run)
     if "plain" in groups:
         plain_phases(run, kernels["big64_end"] if kernels else None)

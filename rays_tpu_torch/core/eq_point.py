@@ -84,12 +84,14 @@ def value_and_jacfwd(f, x):
     depending on its own point only, so one tangent e_i on every row gives
     every ray's d/dx_i at once.  Returns (values, jacobians) with
     jac[b, ..., i] = d value[b, ...] / d x[b, i]: for a model's ``fields``,
-    jb[b, j, i] = dB_j/dx_i, jn[b, s, i] and jt[b, s, i]."""
+    jb[b, j, i] = dB_j/dx_i, jn[b, s, i] and jt[b, s, i].  The tangents are
+    rows of an identity made on x's device (no Python number is written
+    into a tensor, so nothing is copied from the host: the graph routes
+    capture this)."""
+    unit = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
     columns = []
     for i in range(x.shape[-1]):
-        tangent = torch.zeros_like(x)
-        tangent[:, i] = 1.0
-        y, dy = torch.func.jvp(f, (x,), (tangent,))
+        y, dy = torch.func.jvp(f, (x,), (unit[i].expand_as(x),))
         columns.append(dy)
     jac = tuple(torch.stack(cols, dim=-1) for cols in zip(*columns))
     return y, jac

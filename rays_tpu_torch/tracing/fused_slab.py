@@ -52,6 +52,7 @@ import shutil
 import torch
 
 from rays_tpu_torch import constants, native
+from rays_tpu_torch.models import base
 from rays_tpu_torch.tracing.trace import RayResults, trace_batch
 
 # launches of the CUDA kernel in this process (not of the plain twin)
@@ -77,9 +78,11 @@ def supported(cfg) -> bool:
     diagnostics, fixed-step RK4, at most 6 species.  Unlike the Pallas
     kernel it also writes trajectories (``save_trajectory``) and runs
     ``damp_fund_ECH`` damping, with or without the per-species slots.
-    It has no compensated carry: a ``compensated_sum`` run takes the plain
-    tracer, which keeps it."""
-    if cfg.equilib_model != "slab" or cfg.compensated_sum:
+    It has no compensated carry: a ``compensated_sum`` run takes the graph
+    route on the card (``trace.route``), which keeps it.  A model of the
+    caller's own registered under the name ``"slab"`` is not the slab
+    whose physics the kernel holds."""
+    if cfg.equilib_model != "slab" or "slab" in base.EQ_MODELS or cfg.compensated_sum:
         return False
     if cfg.damping_model not in ("no_damp", "damp_fund_ECH"):
         return False

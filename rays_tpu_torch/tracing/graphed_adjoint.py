@@ -13,11 +13,13 @@ the host, which leaves the card idle most of a training step.  Here a
 step's backward is one graph launch.
 
 ``trace.route`` sends here, on a CUDA device with reverse-mode gradients,
-every built-in configuration whose outer step is one graph: RK4 on every
-geometry (damping, per-species slots and the equilibrium-gradient slots
+every configuration whose outer step is one graph: RK4 on every geometry
+(damping, per-species slots and the equilibrium-gradient slots
 included), SG with a fixed substep budget (``sg_scan_substeps > 0``), the
-compensated carry, in float32 and float64.  A capture or a replay that
-fails raises; nothing falls back to the eager loop.
+compensated carry, in float32 and float64, and a model of the caller's
+own (audited before its first capture, tracing/graphed.py).  Forward-mode
+tangents go to the tangent graph (tracing/graphed_tangent.py).  A capture
+or a replay that fails raises; nothing falls back to the eager loop.
 
 How a run goes (``StaticAdjoint``, which keeps ``graphed.StaticLoop``'s
 static buffers and adds its own):
@@ -48,12 +50,16 @@ static buffers and adds its own):
   always recomputes its step.
 
 A cache entry holds the stack, the trajectory and its cotangent, and one
-step's saved activations in its graphs' pool.  It shares
-``graphed._CACHE`` and ``graphed.CACHE_SIZE`` with the graph route, under
-keys of its own.  An entry answers one forward at a time: if another
-forward on the same entry came in between, the backward first replays
-its own forward again from its saved inputs.  A backward whose entry was
-evicted from the cache raises.
+step's saved activations in its graphs' pool.  It shares the graph
+route's cache (``graphed.get_or_capture``) under keys of its own.  The
+autograd node keeps the run's inputs and the way to its entry, not the
+entry: its backward asks the cache again, and an entry that was evicted
+since is captured again (one capture, paid only by such a program; the
+card's memory holds ``graphed.CACHE_SIZE`` entries and the one being
+rebuilt).  Each forward on a loop takes a run id unique in the process:
+when the backward finds another run's stack on its loop (another
+forward on the same entry came in between, or the entry is a new
+capture), it first replays its own forward from its saved inputs.
 
 ``CAPTURES`` counts the configurations captured, ``REPLAYS`` the step
 and VJP replays.  ``trace_batch_static_adjoint`` runs the same pieces
@@ -63,15 +69,20 @@ through ``trace_batch`` on the CPU.
 
 from __future__ import annotations
 
+import functools
+import itertools
+
 import torch
 from torch.autograd.function import once_differentiable
 
-from rays_tpu_torch.core.types import has_tangent, tree_leaves
+from rays_tpu_torch.core.types import has_tangent, tree_leaves, tree_map
 from rays_tpu_torch.tracing import graphed, rk45, trace
 
 WARMUP = 3          # warm-up iterations (step and VJP) before the capture
 CAPTURES = 0
 REPLAYS = 0
+
+_RUN_IDS = itertools.count(1)   # one per forward, unique across loops
 
 
 def refusal(cfg):
@@ -116,7 +127,7 @@ class StaticAdjoint(graphed.StaticLoop):
         self.leaves = [t.requires_grad_(True) for t in tree_leaves(self.params)
                        if t.is_floating_point()]
         self.acc = [torch.zeros_like(t) for t in self.leaves]
-        self.run_id = 0
+        self.run_id = 0     # no forward yet
 
     def functions(self):
         return {"step": self.step, "vjp": self.vjp}
@@ -195,7 +206,7 @@ class StaticAdjoint(graphed.StaticLoop):
                 self.run(launch)
             if self.counting and rk45.stats is not None:
                 rk45.stats.merge(self.stats)
-            self.run_id += 1
+            self.run_id = next(_RUN_IDS)
             out = tuple(t.clone() for t in self.carry)
             if self.traj is not None:
                 out = (self.traj.clone(), self.resid.clone(), *out)
@@ -230,17 +241,19 @@ class StaticAdjoint(graphed.StaticLoop):
 
 
 class GraphedSteps(torch.autograd.Function):
-    """The outer steps of a run as one autograd node: inputs (loop,
-    launch, *initial carry, *floating Params leaves), outputs
-    ([trajectory, residual,] *final carry).  ``loop`` is a
-    ``StaticAdjoint``; ``launch(name)`` starts its pieces (a
-    ``CapturedAdjoint``'s replays), or None calls them directly."""
+    """The outer steps of a run as one autograd node: inputs (entry,
+    *initial carry, *floating Params leaves), outputs ([trajectory,
+    residual,] *final carry).  ``entry()`` gives (loop, launch): a
+    ``StaticAdjoint`` and ``launch(name)``, which starts its pieces (a
+    cache entry's replays), or None, which calls them directly.  The node
+    keeps ``entry`` and asks it again in the backward."""
 
     @staticmethod
-    def forward(ctx, loop, launch, *inputs):
+    def forward(ctx, entry, *inputs):
+        loop, launch = entry()
         n_carry = len(loop.carry)
         out, ctx.run_id = loop.forward(inputs[:n_carry], inputs[n_carry:], launch)
-        ctx.loop, ctx.launch, ctx.n_carry = loop, launch, n_carry
+        ctx.entry, ctx.n_carry, ctx.floats = entry, n_carry, loop.floats
         ctx.n_traj = 0 if loop.traj is None else 2
         ctx.save_for_backward(*inputs)
         ctx.set_materialize_grads(False)
@@ -250,83 +263,29 @@ class GraphedSteps(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, *cots):
-        loop, launch, n_carry, n_traj = ctx.loop, ctx.launch, ctx.n_carry, ctx.n_traj
+        loop, launch = ctx.entry()
+        n_carry, n_traj = ctx.n_carry, ctx.n_traj
         inputs = ctx.saved_tensors
         if loop.run_id != ctx.run_id:
-            # another forward ran on this loop since: put this one back
+            # another run's stack is on the loop: put this one back
             _, ctx.run_id = loop.forward(inputs[:n_carry], inputs[n_carry:], launch)
         cot_traj, cot_resid = cots[:2] if n_traj else (None, None)
-        cot_carry = [cots[n_traj + i] for i in loop.floats]
+        cot_carry = [cots[n_traj + i] for i in ctx.floats]
         g_carry, g_leaves = loop.backward(cot_carry, cot_traj, cot_resid, launch)
         grads = [None] * n_carry
-        for i, g in zip(loop.floats, g_carry):
+        for i, g in zip(ctx.floats, g_carry):
             grads[i] = g
-        return (None, None, *grads, *g_leaves)
+        return (None, *grads, *g_leaves)
 
 
-class CapturedAdjoint:
-    """One cache entry: a StaticAdjoint and its two pieces captured as
-    CUDA graphs that share one private memory pool.  Made under no_grad on
-    the device of its tensors (``trace_batch_graphed_adjoint``)."""
-
-    def __init__(self, cfg, params, v0, status0, carry, leaves):
-        global CAPTURES
-        self.loop = loop = StaticAdjoint(cfg, params, v0, status0)
-        self.device = v0.device
-        self.released = False
-        loop.load_inputs(carry, leaves)
-        pieces = loop.functions()
-        side = torch.cuda.Stream(device=v0.device)
-        side.wait_stream(torch.cuda.current_stream(v0.device))
-        # warm up on the capture stream (library handles, the allocator,
-        # the autograd engine's device thread), forward and VJP in turn.
-        # It steps the static buffers only, which are loaded again below
-        # and at every run: the caller's state is never stepped by it
-        with torch.cuda.stream(side):
-            scratch = rk45.SubstepStats().bind(v0.device) if loop.counting else None
-            held, rk45.stats = rk45.stats, scratch
-            try:
-                for _ in range(WARMUP if cfg.nstep_max else 0):
-                    for fn in pieces.values():
-                        fn()
-            finally:
-                rk45.stats = held
-        torch.cuda.current_stream(v0.device).wait_stream(side)
-        loop.load_inputs(carry, leaves)
-        self.pool = torch.cuda.graph_pool_handle()
-        self.graphs = {}
-        # a run of no steps launches no piece: nothing to capture
-        for name, fn in (pieces.items() if cfg.nstep_max else ()):
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, pool=self.pool, stream=side):
-                loop.with_own_stats(fn)
-            self.graphs[name] = g
-        CAPTURES += 1
-
-    def launch(self, name):
-        global REPLAYS
-        if self.released:
-            raise RuntimeError("this graphed adjoint was evicted from the cache before its "
-                               "backward ran; raise graphed.CACHE_SIZE")
-        with torch.cuda.device(self.device):
-            self.graphs[name].replay()
-        REPLAYS += 1
-
-    def release(self):
-        for g in self.graphs.values():
-            g.reset()
-        self.graphs.clear()
-        self.released = True
-
-
-def trace_adjoint(cfg, params, v0, status0, pwr_wt, loop, launch=None) -> trace.RayResults:
-    """RayResults of a run through ``GraphedSteps`` on ``loop`` (a
-    StaticAdjoint of these shapes), its pieces started by ``launch(name)``
-    or, when it is None, called directly; the initial carry and the
-    results assembly eagerly, under autograd."""
+def trace_adjoint(cfg, params, v0, status0, pwr_wt, entry) -> trace.RayResults:
+    """RayResults of a run through ``GraphedSteps`` on ``entry()``'s
+    (loop, launch): a StaticAdjoint of these shapes whose pieces
+    ``launch(name)`` starts or, when it is None, are called directly; the
+    initial carry and the results assembly eagerly, under autograd."""
     carry = trace.initial_carry(cfg, params, v0, status0)
     leaves = [t for t in tree_leaves(params) if t.is_floating_point()]
-    out = GraphedSteps.apply(loop, launch, *carry, *leaves)
+    out = GraphedSteps.apply(entry, *carry, *leaves)
     B, nv = v0.shape
     if cfg.save_trajectory:
         ray_vec, residual, out = out[0], out[1], out[2:]
@@ -342,35 +301,50 @@ def trace_batch_static_adjoint(cfg, params, v0, status0, pwr_wt, loop=None) -> t
     ``loop``: a StaticAdjoint of these shapes to reuse, as a cache entry
     is reused."""
     loop = StaticAdjoint(cfg, params, v0, status0) if loop is None else loop
-    return trace_adjoint(cfg, params, v0, status0, pwr_wt, loop)
+    return trace_adjoint(cfg, params, v0, status0, pwr_wt, lambda: (loop, None))
+
+
+def capture(cfg, params, v0, status0):
+    """A cache entry (``graphed.Captured``) of the step and VJP pieces of
+    a StaticAdjoint of these shapes."""
+    global CAPTURES
+    loop = StaticAdjoint(cfg, params, v0, status0)
+    # under no_grad, as a run's forward: the step piece must not record
+    # autograd history into the static buffers (the VJP piece turns grad
+    # mode on for its own recompute)
+    with torch.no_grad():
+        carry = trace.initial_carry(cfg, params, v0, status0)
+        leaves = [t for t in tree_leaves(params) if t.is_floating_point()]
+        entry = graphed.Captured(loop, lambda: loop.load_inputs(carry, leaves), WARMUP)
+    CAPTURES += 1
+    return entry
 
 
 def trace_batch_graphed_adjoint(cfg, params, v0, status0, pwr_wt) -> trace.RayResults:
     """``trace_batch`` on a CUDA device whose backward replays the
     configuration's captured VJP (step and VJP captured at the first call
-    with these shapes).  Every tensor must lie on v0's device; forward-mode
-    tangents are not taken (``route`` sends them to ``trace_batch``)."""
+    with these shapes, and again by a backward that finds them evicted).
+    Every tensor must lie on v0's device; forward-mode tangents are not
+    taken (``route`` sends them to the tangent graph)."""
     check_capturable(cfg)
     if has_tangent(params, v0):
         raise ValueError("the graphed adjoint takes no forward-mode tangents; trace_batch does")
-    dev = v0.device
-    if dev.type != "cuda":
-        raise ValueError(f"the graphed adjoint runs on a CUDA device, not {dev}")
-    for t in (status0, pwr_wt, *tree_leaves(params)):
-        if t.device != dev:
-            raise ValueError(f"the graphed adjoint needs every input on {dev}, found {t.device}")
+    graphed.require_card("the graphed adjoint", params, v0, status0, pwr_wt)
     key = ("adjoint", *graphed.cache_key(cfg, params, v0))
-    with torch.cuda.device(dev):
-        entry = graphed._CACHE.get(key)
-        if entry is None:
-            while len(graphed._CACHE) >= graphed.CACHE_SIZE:
-                graphed._CACHE.popitem(last=False)[1].release()
-                torch.cuda.empty_cache()
-            with torch.no_grad():
-                carry = trace.initial_carry(cfg, params, v0, status0)
-                leaves = [t for t in tree_leaves(params) if t.is_floating_point()]
-                entry = graphed._CACHE[key] = CapturedAdjoint(cfg, params, v0, status0,
-                                                              carry, leaves)
-        else:
-            graphed._CACHE.move_to_end(key)
-        return trace_adjoint(cfg, params, v0, status0, pwr_wt, entry.loop, entry.launch)
+    # the inputs of a capture again, without their autograd history
+    held = (tree_map(torch.Tensor.detach, params), v0.detach(), status0)
+    dev = v0.device
+
+    def entry():
+        with torch.cuda.device(dev):
+            found = graphed.get_or_capture(key, lambda: capture(cfg, *held))
+        return found.loop, functools.partial(_replay, found)
+
+    entry()     # the capture, at the first call with these shapes
+    return trace_adjoint(cfg, params, v0, status0, pwr_wt, entry)
+
+
+def _replay(entry, name):
+    global REPLAYS
+    entry.launch(name)
+    REPLAYS += 1

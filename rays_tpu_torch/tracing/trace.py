@@ -16,11 +16,13 @@ tracing/rk45.py); autograd differentiates it with respect to every
 floating Params leaf, v0 and pwr_wt (the adjoint), with each step
 rematerialized on the backward pass when ``cfg.remat_steps`` is on.
 ``trace_rays`` is the top-level dispatch; ``route`` says from the config,
-the kind of derivative and the device which of the four tracers a run
+the kind of derivative and the device which of the five tracers a run
 takes: the slab kernel, the graphed tracer (tracing/graphed.py, which
 replays this module's ``step`` as a CUDA graph), the graphed adjoint
 (tracing/graphed_adjoint.py, which replays ``step`` forward and its VJP
-backward, for reverse-mode gradients on the card) or ``trace_batch``.
+backward, for reverse-mode gradients on the card), the tangent graph
+(tracing/graphed_tangent.py, which replays the JVP of ``step``, for
+forward-mode tangents on the card) or ``trace_batch``.
 """
 
 from __future__ import annotations
@@ -95,37 +97,51 @@ def route(cfg, needs_grad, device, tangents=False) -> str:
     captured once per configuration as a CUDA graph and replayed,
     tracing/graphed.py), ``"adjoint"`` (the step and its VJP captured as
     CUDA graphs, the forward replaying one and the backward the other,
-    tracing/graphed_adjoint.py) or ``"plain"`` (``trace_batch`` on the
-    tensors' own device).
+    tracing/graphed_adjoint.py), ``"tangent"`` (the step's JVP captured
+    as a CUDA graph and replayed, tracing/graphed_tangent.py) or
+    ``"plain"`` (``trace_batch`` on the tensors' own device).  The three
+    kinds of graph share one cache of ``graphed.CACHE_SIZE`` entries
+    (``graphed.get_or_capture``).
 
     On a CUDA device without derivatives every config that
     ``fused_slab.supported`` accepts takes the kernel, and every other
-    config of the port's own (the adaptive stepper, the Solovev tokamak,
-    the spline geometries, the equilibrium-gradient slots, the autodiff
-    derivatives, the compensated carry) the graph: the counterpart of the
-    JAX package's one ``jax.jit`` per config.  With reverse-mode gradients
+    config (the adaptive stepper, the Solovev tokamak, the spline
+    geometries, the equilibrium-gradient slots, the autodiff derivatives,
+    the compensated carry) the graph: the counterpart of the JAX
+    package's one ``jax.jit`` per config.  With reverse-mode gradients
     every config whose outer step is one graph takes the adjoint graph,
     the counterpart of the JAX package's ``jax.jit(jax.value_and_grad)``:
     RK4 on every geometry (the kernel's configs too: the kernel has no
     backward), SG with ``sg_scan_substeps > 0``, the compensated carry.
     It recomputes each step on the backward pass whatever
     ``cfg.remat_steps`` says, which sets only the plain route's memory.
+    With forward-mode tangents every config but the autodiff derivatives
+    takes the tangent graph, the counterpart of ``jax.jit`` around
+    ``jax.jvp``, the SG loop form included.
 
-    These stay plain: forward-mode tangents (no graph takes them yet);
-    the SG loop form (``sg_scan_substeps == 0``), which has no reverse
-    rule, as in the JAX package; ``ray_deriv_name='autodiff'``, whose
-    gradient is a second derivative through the autograd call inside the
-    step; the CPU; and a model of the caller's own from
-    ``base.register_eq_model``, even under a built-in name: the port
-    cannot promise that the caller's code is safe to capture.  This is a
-    choice, not a fallback: a kernel that fails to build or launch, or a
-    capture or replay that fails, raises."""
+    A model of the caller's own from ``base.register_eq_model`` takes the
+    same routes as a built-in one, but never the kernel, even under the
+    name ``"slab"``: the kernel's physics is the built-in slab's.  Its
+    pieces are audited before their first capture (tracing/graphed.py),
+    and a model that reads the host is refused with a ValueError.
+
+    These stay plain: tangents together with reverse-mode gradients; the
+    SG loop form and ``ray_deriv_name='autodiff'`` with gradients (the
+    loop has no reverse rule, as in the JAX package; the autodiff
+    derivatives' gradient is a second derivative through the autograd
+    call inside the step); ``autodiff`` with tangents; and the CPU.  This
+    is a choice, not a fallback: a kernel that fails to build or launch,
+    or a capture, an audit or a replay that fails, raises."""
     check_supported(cfg)
     kind = torch.device(device).type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"trace_rays: unsupported device {device}")
-    if kind == "cpu" or tangents or cfg.equilib_model in base.EQ_MODELS:
+    if kind == "cpu" or (tangents and needs_grad):
         return "plain"
+    if tangents:
+        from rays_tpu_torch.tracing import graphed_tangent
+
+        return "plain" if graphed_tangent.refusal(cfg) else "tangent"
     if needs_grad:
         from rays_tpu_torch.tracing import graphed_adjoint
 
@@ -149,6 +165,10 @@ def trace_rays(cfg, params, v0, status0, pwr_wt) -> RayResults:
         from rays_tpu_torch.tracing import graphed_adjoint
 
         return graphed_adjoint.trace_batch_graphed_adjoint(cfg, params, v0, status0, pwr_wt)
+    if which == "tangent":
+        from rays_tpu_torch.tracing import graphed_tangent
+
+        return graphed_tangent.trace_batch_graphed_tangent(cfg, params, v0, status0, pwr_wt)
     from rays_tpu_torch.tracing import fused_slab
 
     return fused_slab.trace_batch_fused(cfg, params, v0, status0, pwr_wt)
@@ -288,9 +308,10 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
     plain run's, and the rounding errors gather in a carried vector that
     ends as ``end_ray_comp``.
 
-    This is the eager twin of the graphed tracer (tracing/graphed.py) and
-    of the graphed adjoint (tracing/graphed_adjoint.py), which replay the
-    same ``step``; called directly it runs eagerly on any device."""
+    This is the eager twin of the graphed tracer (tracing/graphed.py), of
+    the graphed adjoint (tracing/graphed_adjoint.py) and of the tangent
+    graph (tracing/graphed_tangent.py), which replay the same ``step``;
+    called directly it runs eagerly on any device."""
     check_supported(cfg)
     B, nv = v0.shape
     dev, dt = v0.device, v0.dtype

@@ -19,8 +19,14 @@ launcher), which is what the graphs replay.  Held:
 * a reused loop answers each call with its own inputs;
 * the dispatch: the graph route on the card without gradients, the
   graphed adjoint for reverse-mode gradients (tests/test_torch_graphed_adjoint.py)
-  but plain for the SG loop form and the autodiff derivatives, plain for
-  the CPU and a registered model.
+  but plain for the SG loop form and the autodiff derivatives, the
+  tangent graph for forward-mode tangents (tests/test_torch_graphed_tangent.py)
+  but plain for the autodiff derivatives, plain on the CPU; a registered
+  model takes the same routes, never the kernel.
+
+The audits themselves (``PieceAudit``, ``BackwardAudit``) live in
+``rays_tpu_torch/tracing/capture_audit.py``, which also runs them on a
+registered model before its first capture.
 """
 
 import collections
@@ -31,8 +37,6 @@ import numpy as np
 import pytest
 import torch
 import torch.autograd.forward_ad as fwAD
-from torch.overrides import TorchFunctionMode
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import _torch_parity as tp
 import rays_tpu  # noqa: F401  (x64 on)
@@ -42,6 +46,7 @@ from rays_tpu_torch.core.types import has_tangent, tree_map
 from rays_tpu_torch.models import base as tbase
 from rays_tpu_torch.tracing import fused_slab, graphed, rhs as trhs, rk45 as trk45
 from rays_tpu_torch.tracing import trace as ttrace
+from rays_tpu_torch.tracing.capture_audit import HOST_READING_BACKWARDS, BackwardAudit, PieceAudit
 
 N_RAYS = 24
 TRAJ_RTOL = 1e-9
@@ -161,58 +166,6 @@ def test_eq_gradient_trace_matches_jax():
 
 # --- what the pieces issue --------------------------------------------------
 
-HOST_READS = {"_local_scalar_dense", "is_nonzero", "nonzero", "masked_select", "lift_fresh",
-              "lift_fresh_copy", "item"}
-PRODUCTS = {"mm", "bmm", "addmm", "matmul", "baddbmm", "mv", "dot", "addmv"}
-# autograd nodes whose backward formula reads the host (PyTorch's
-# FunctionsManual: prod and cumprod look for zero factors, the others have
-# data-dependent shapes).  A dispatch mode cannot see those reads: under
-# one, autograd takes the formulas' slower branch without them.
-HOST_READING_BACKWARDS = {"ProdBackward0", "ProdBackward1", "CumprodBackward0",
-                          "MaskedSelectBackward0", "RepeatInterleaveBackward0",
-                          "MedianBackward0", "MedianBackward1", "KthvalueBackward0",
-                          "NonzeroBackward0", "UniqueBackward0"}
-
-
-class BackwardAudit(TorchFunctionMode):
-    """Counts, by name, the autograd nodes of the tensors made inside it
-    (the autodiff derivatives' backward pass runs inside a step)."""
-
-    def __init__(self):
-        super().__init__()
-        self.nodes = collections.Counter()
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        for t in out if isinstance(out, (tuple, list)) else (out,):
-            if isinstance(t, torch.Tensor) and t.grad_fn is not None:
-                self.nodes[type(t.grad_fn).__name__] += 1
-        return out
-
-
-class PieceAudit(TorchDispatchMode):
-    """Counts, by aten name, the host reads, the copies across devices and
-    the library products issued inside it."""
-
-    def __init__(self):
-        super().__init__()
-        self.reads, self.products = collections.Counter(), collections.Counter()
-        self.crossings = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        name = func.__name__.split(".")[0]
-        if name in HOST_READS:
-            self.reads[name] += 1
-        if name in PRODUCTS:
-            self.products[name] += 1
-        if name == "copy_" and args[0].device != args[1].device:
-            self.crossings.append((name, args[1].device, args[0].device))
-        if name == "_to_copy" and kwargs.get("device") not in (None, args[0].device):
-            self.crossings.append((name, args[0].device, kwargs["device"]))
-        return func(*args, **kwargs)
-
-
 def _audit(cfg, params, v0, st, pwr, monkeypatch):
     """Run the static loop with every piece under a PieceAudit and a
     BackwardAudit: (audit, backward audit, pieces launched, right-hand-side
@@ -306,10 +259,21 @@ def test_route_of_each_graphed_config(setups, name):
     differentiable = name not in LOOP_FORM and name != "slab_rk4_autodiff"
     assert ttrace.route(cfg, True, "cuda") == ("adjoint" if differentiable else "plain")
     assert ttrace.route(cfg, False, "cpu") == ttrace.route(cfg, True, "cpu") == "plain"
-    # a model of the caller's own, even under the built-in name, stays plain
+    # tangents take the tangent graph, but for the autodiff derivatives
+    tangent = "plain" if name == "slab_rk4_autodiff" else "tangent"
+    assert ttrace.route(cfg, False, "cuda", tangents=True) == tangent
+    # a model of the caller's own, even under the built-in name, takes the
+    # same compiled routes
     tbase.register_eq_model(cfg.equilib_model, tbase.get_eq_model(cfg.equilib_model))
     try:
-        assert ttrace.route(cfg, False, "cuda") == "plain"
+        assert ttrace.route(cfg, False, "cuda") == "graph"
+        assert ttrace.route(cfg, True, "cuda") == ("adjoint" if differentiable else "plain")
+        assert ttrace.route(cfg, False, "cuda", tangents=True) == tangent
+        if name == "slab_rk4_autodiff":
+            # ... and never the kernel: its physics is the built-in slab's
+            cold = dataclasses.replace(cfg, ray_deriv_name="cold")
+            assert ttrace.route(cold, False, "cuda") == "graph"
+            assert not fused_slab.supported(cold)
     finally:
         tbase.EQ_MODELS.pop(cfg.equilib_model)
     assert ttrace.route(cfg, False, "cuda") == "graph"

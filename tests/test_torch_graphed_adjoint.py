@@ -25,8 +25,9 @@ graphs replay.  Held:
 * one reused loop answers two forwards with other Params, whose
   backwards run after both, each with its own gradients;
 * the dispatch: the adjoint graph on the card with reverse-mode
-  gradients; plain for tangents, the SG loop form, the autodiff
-  derivatives, a registered model and the CPU.
+  gradients, a registered model's too; the tangent graph for tangents;
+  plain for tangents with gradients, the SG loop form, the autodiff
+  derivatives and the CPU.
 """
 
 import collections
@@ -50,11 +51,11 @@ from rays_tpu_torch.core.types import tree_leaves, tree_map
 from rays_tpu_torch.models import base as tbase
 from rays_tpu_torch.tracing import fused_slab, graphed, graphed_adjoint as ga
 from rays_tpu_torch.tracing import trace as ttrace
+from rays_tpu_torch.tracing.capture_audit import HOST_READING_BACKWARDS, BackwardAudit, PieceAudit
 from test_axisym import AXISYM_TMPL
 from test_torch_adaptive import _adjoint_case as _sg_adjoint_case
 from test_torch_adjoint import GRAFT_DS, GRAFT_STEPS, _jax_graft_loss, _torch_graft_loss
-from test_torch_graphed import (EQ_GRAD, HOST_READING_BACKWARDS, MIRROR_DAMPED, SLAB_SG,
-                                BackwardAudit, PieceAudit)
+from test_torch_graphed import EQ_GRAD, MIRROR_DAMPED, SLAB_SG
 
 N_RAYS = 8
 GRAD_RTOL = 1e-12       # float64: of each leaf's largest eager gradient
@@ -290,7 +291,7 @@ def test_vjp_piece_reads_nothing_on_the_host(setups, name):
             pieces[piece]()
 
     p = _with_grad(params)
-    res = ga.trace_adjoint(cfg, p, v0, st, pwr, loop, launch)
+    res = ga.trace_adjoint(cfg, p, v0, st, pwr, lambda: (loop, launch))
     grads = torch.autograd.grad(_weighted_loss(res), [t for t in tree_leaves(p)
                                                       if t.is_floating_point()])
     assert dict(launched) == {"step": 3, "vjp": 3}
@@ -359,16 +360,18 @@ def test_route_of_each_adjoint_config(setups, name):
     # without gradients the kernel or the graph, as before
     assert ttrace.route(cfg, False, "cuda") == ("kernel" if name in KERNEL_CONFIGS else "graph")
     assert fused_slab.supported(cfg) == (name in KERNEL_CONFIGS)
-    # tangents (with or without reverse mode) and the CPU stay plain
-    assert ttrace.route(cfg, False, "cuda", tangents=True) == "plain"
+    # tangents take the tangent graph; tangents with reverse mode, and the
+    # CPU, stay plain
+    assert ttrace.route(cfg, False, "cuda", tangents=True) == "tangent"
     assert ttrace.route(cfg, True, "cuda", tangents=True) == "plain"
     assert ttrace.route(cfg, True, "cpu") == "plain"
     # remat_steps sets only the plain route's memory
     assert ttrace.route(dataclasses.replace(cfg, remat_steps=False), True, "cuda") == "adjoint"
-    # a model of the caller's own, even under the built-in name, stays plain
+    # a model of the caller's own, even under the built-in name, takes the
+    # adjoint graph too
     tbase.register_eq_model(cfg.equilib_model, tbase.get_eq_model(cfg.equilib_model))
     try:
-        assert ttrace.route(cfg, True, "cuda") == "plain"
+        assert ttrace.route(cfg, True, "cuda") == "adjoint"
     finally:
         tbase.EQ_MODELS.pop(cfg.equilib_model)
 

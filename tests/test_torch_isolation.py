@@ -147,13 +147,15 @@ def test_non_cpu_tensors_never_run_the_plain_tracer():
 def test_kernel_configs_never_take_the_plain_route_off_the_cpu(text, monkeypatch):
     """A config the gate accepts goes to the kernel on CUDA tensors, from
     the config alone; a request for gradients takes the graphed adjoint
-    there, and only forward-mode tangents the plain route.  Without nvcc
-    the kernel route raises: nothing runs in its place."""
+    there, forward-mode tangents the tangent graph, and the two together
+    the plain route.  Without nvcc the kernel route raises: nothing runs
+    in its place."""
     cfg, params, v0, st, pwr = examples.setup_example(text, device="cpu")
     assert fused_slab.supported(cfg)
     assert route(cfg, False, "cuda") == route(cfg, False, torch.device("cuda", 0)) == "kernel"
     assert route(cfg, True, "cuda") == "adjoint"
-    assert route(cfg, False, "cuda", tangents=True) == "plain"
+    assert route(cfg, False, "cuda", tangents=True) == "tangent"
+    assert route(cfg, True, "cuda", tangents=True) == "plain"
     assert route(cfg, False, "cpu") == route(cfg, True, "cpu") == "plain"
     with pytest.raises(ValueError, match="unsupported device"):
         route(cfg, False, "meta")

@@ -13,6 +13,15 @@ against the JAX package's (``rays_tpu.models.base.register_eq_model``,
   mirror.  The JAX forward mode gives the same columns on the slab.
 * ``equilibrium`` takes forward mode when ``supports_analytic_jac`` says
   no, and the EqPoint is the closed form's within 1e-10 of scale.
+* A registered model takes the compiled routes on the card (graph,
+  adjoint, tangent), never the kernel.  The static twins of the graph
+  route and the adjoint graph equal ``trace_batch`` (bit for bit; the
+  gradients within 1e-12 of scale) on the toy model and on a mirror
+  without its closed forms; the tangent graph's twin equals eager forward
+  AD on the built-in slab and Solovev modules registered under new names
+  (a model whose jacobians come by forward mode takes no tangents:
+  PyTorch's forward AD does not nest).  A model that reads the host is
+  refused with its name before anything is captured.
 * ``default_params`` equals the JAX one field for field; ``asarrays``
   makes every leaf a tensor of the dtype and device asked for.
 * A name nobody registered still raises ``NotImplementedError``.
@@ -20,6 +29,7 @@ against the JAX package's (``rays_tpu.models.base.register_eq_model``,
 
 import dataclasses
 import types
+import torch.autograd.forward_ad as fwAD
 
 import jax
 import jax.numpy as jnp
@@ -40,8 +50,11 @@ from rays_tpu_torch.core.types import asarrays, tree_leaves
 from rays_tpu_torch.models import base as tbase
 from rays_tpu_torch.models import slab as tslab
 from rays_tpu_torch.models import solovev as tsolovev
-from rays_tpu_torch.tracing import fused_slab
+from rays_tpu_torch.tracing import capture_audit, fused_slab, graphed, graphed_adjoint as ga
+from rays_tpu_torch.tracing import graphed_tangent as gt
 from rays_tpu_torch.tracing import trace as ttrace
+from test_torch_graph_cache import _assert_grads_close, _grads, _loss, _with_grad
+from test_torch_graphed_tangent import TANGENT_RTOL, _assert_same_tangents, _direction, _traced
 
 END_RTOL = 1e-9
 JAC_RTOL = 1e-10
@@ -64,7 +77,10 @@ def _jax_toy():
 
 def _port_toy():
     def shifted(rvec):
-        return rvec - torch.tensor([SHIFT, 0.0, 0.0], dtype=rvec.dtype, device=rvec.device)
+        # a row of an identity on rvec's device, not a tensor made from a
+        # Python list: that would be copied from the host at each call,
+        # which the graph routes refuse to capture
+        return rvec - SHIFT * torch.eye(3, dtype=rvec.dtype, device=rvec.device)[0]
 
     def fields(static, p, species, rvec):
         return tslab.fields(static, p, species, shifted(rvec))
@@ -103,10 +119,10 @@ def test_registered_model_traces_like_jax(toy_registered):
                                                              save_trajectory=False)[:2],
                                                 jv0, jst, jpwr)
     pcfg = dataclasses.replace(base_cfg, equilib_model=toy_registered)
-    # a registered model takes the plain route on every device, the kernel
-    # gate is the slab's alone
-    for dev in ("cpu", "cuda"):
-        assert ttrace.route(pcfg, False, dev) == "plain"
+    # a registered model takes the compiled routes on the card (the CPU
+    # stays plain); the kernel gate is the slab's alone
+    assert ttrace.route(pcfg, False, "cpu") == "plain"
+    assert ttrace.route(pcfg, False, "cuda") == "graph"
     assert not fused_slab.supported(pcfg) and fused_slab.supported(base_cfg)
     before = fused_slab.LAUNCHES
     res = ttrace.trace_rays(pcfg, pparams, v0, st, pwr)
@@ -129,13 +145,14 @@ def test_registered_model_traces_like_jax(toy_registered):
 
 def test_registered_name_shadows_a_built_in_one():
     """A model registered under a built-in name is the one that runs, and
-    the slab kernel never takes it."""
+    the slab kernel never takes it: it takes the graph route."""
     cfg, params, v0, _, _ = examples.setup_example(device="cpu")
     assert ttrace.route(cfg, False, "cuda") == "kernel"
     tbase.register_eq_model("slab", _port_toy())
     try:
         assert tbase.get_eq_model("slab") is tbase.EQ_MODELS["slab"]
-        assert ttrace.route(cfg, False, "cuda") == "plain"
+        assert ttrace.route(cfg, False, "cuda") == "graph"
+        assert not fused_slab.supported(cfg)
         shifted = tbase.equilibrium(cfg, params, v0[:, :3])
     finally:
         tbase.EQ_MODELS.pop("slab")
@@ -280,3 +297,152 @@ def test_asarrays_maps_every_leaf():
     assert all(isinstance(x, torch.Tensor) and x.dtype == torch.float32
                and x.device.type == "cpu" for x in leaves)
     assert p.alphat2.tolist() == [2.0, 2.0] and float(p.outer_bound) == pytest.approx(1.3)
+
+
+# --- the compiled routes ----------------------------------------------------------
+
+COMPILED_STEPS = 12
+
+
+def _host_reading_slab():
+    """The slab with its closed form, reading the host in it (a
+    ``.item()``)."""
+    def fields_and_jac(static, p, species, rvec):
+        if rvec[:, 0].max().item() > 1e9:
+            raise AssertionError("never")
+        return tslab.fields_and_jac(static, p, species, rvec)
+
+    return types.SimpleNamespace(fields=tslab.fields, geom_err=tslab.geom_err, err=tslab.err,
+                                 fields_and_jac=fields_and_jac)
+
+
+def test_registered_model_takes_the_compiled_routes(toy_registered):
+    cfg = dataclasses.replace(examples.setup_example(device="cpu")[0],
+                              equilib_model=toy_registered)
+    assert ttrace.route(cfg, False, "cuda") == "graph"
+    assert ttrace.route(cfg, True, "cuda") == "adjoint"
+    assert ttrace.route(cfg, False, "cuda", tangents=True) == "tangent"
+    assert ttrace.route(cfg, True, "cuda", tangents=True) == "plain"
+    for needs, tangents in ((False, False), (True, False), (False, True)):
+        assert ttrace.route(cfg, needs, "cpu", tangents=tangents) == "plain"
+    # ... by the same rules as a built-in config: the SG loop form has no
+    # reverse rule, the autodiff derivatives take neither derivative graph
+    sg = dataclasses.replace(cfg, ode_solver_name="SG_ODE", sg_scan_substeps=0)
+    assert [ttrace.route(sg, *a) for a in ((False, "cuda"), (True, "cuda"))] == ["graph", "plain"]
+    assert ttrace.route(sg, False, "cuda", tangents=True) == "tangent"
+    auto = dataclasses.replace(cfg, ray_deriv_name="autodiff")
+    assert ttrace.route(auto, True, "cuda") == ttrace.route(auto, False, "cuda",
+                                                          tangents=True) == "plain"
+
+
+def _registered_case(which, tmp_path):
+    """(cfg, params, v0, st, pwr) of a registered model on the CPU: the
+    toy on the slab's rays moved by SHIFT, or the mirror taking forward
+    mode (``mirror_by_jvp``), at COMPILED_STEPS steps with trajectories."""
+    if which == "toy":
+        cfg, params, v0, st, pwr = examples.setup_example(device="cpu")
+        v0 = v0.clone()
+        v0[:, 0] += SHIFT
+        model = _port_toy()
+    else:
+        from rays_tpu_torch.models import multiple_mirror as tmm
+
+        cfg, params, v0, st, pwr = trun.setup(
+            examples.write_mirror_example(tmp_path, n_r=17, n_z=41), device="cpu")
+        model = types.SimpleNamespace(fields=tmm.fields, geom_err=tmm.geom_err, err=tmm.err,
+                                      supports_analytic_jac=lambda static, p: False)
+    cfg = dataclasses.replace(cfg, equilib_model=f"{which}_registered",
+                              nstep_max=COMPILED_STEPS, save_trajectory=True)
+    return model, (cfg, params, v0, st, pwr)
+
+
+@pytest.mark.parametrize("which", ["toy", "mirror_by_jvp"])
+def test_graph_and_adjoint_twins_on_a_registered_model(which, tmp_path):
+    model, (cfg, params, v0, st, pwr) = _registered_case(which, tmp_path)
+    tbase.register_eq_model(cfg.equilib_model, model)
+    try:
+        assert ttrace.route(cfg, False, "cuda") == "graph"
+        ref = ttrace.trace_batch(cfg, params, v0, st, pwr)
+        got = graphed.trace_batch_static(cfg, params, v0, st, pwr)
+        for name, g, r in zip(ttrace.RayResults._fields, got, ref):
+            assert (g is None and r is None) or torch.equal(g, r), name
+        assert int(ref.npoints.max()) > COMPILED_STEPS // 2
+        p, q = _with_grad(params), _with_grad(params)
+        loss = _loss(ga.trace_batch_static_adjoint(cfg, p, v0, st, pwr))
+        ref_loss = _loss(ttrace.trace_batch(cfg, q, v0, st, pwr))
+        assert torch.equal(loss.detach(), ref_loss.detach())
+        _assert_grads_close(_grads(loss, p), _grads(ref_loss, q))
+    finally:
+        tbase.EQ_MODELS.pop(cfg.equilib_model)
+
+
+@pytest.mark.parametrize("text", [examples.SLAB_ECH_90GHZ, examples.SOLOVEV_ECH_90GHZ],
+                         ids=["slab", "solovev"])
+def test_tangent_twin_on_a_built_in_model_under_a_new_name(text):
+    cfg, params, v0, st, pwr = examples.setup_example(text, device="cpu")
+    name = f"{cfg.equilib_model}_registered"
+    cfg = dataclasses.replace(cfg, equilib_model=name, nstep_max=COMPILED_STEPS,
+                              save_trajectory=True)
+    tbase.register_eq_model(name, tbase.get_eq_model(cfg.equilib_model.rsplit("_", 1)[0]))
+    try:
+        assert ttrace.route(cfg, False, "cuda", tangents=True) == "tangent"
+        direction = _direction(params, v0, pwr)
+        ref = _traced(ttrace.trace_batch, cfg, params, v0, st, pwr, direction)
+        got = _traced(gt.trace_batch_static_tangent, cfg, params, v0, st, pwr, direction)
+    finally:
+        tbase.EQ_MODELS.pop(name)
+    _assert_same_tangents(got, ref, TANGENT_RTOL, name)
+    assert float(ref["end_ray_vec"][1].abs().max()) > 0
+
+
+@pytest.mark.parametrize("kind", ["graph", "adjoint", "tangent"])
+def test_a_host_reading_model_is_refused_before_any_capture(kind):
+    """The audit runs each piece once eagerly before the capture and
+    raises with the model's name, the piece and the operation; on the CPU
+    the refusal comes before anything touches a card."""
+    cfg, params, v0, st, pwr = examples.setup_example(device="cpu")
+    cfg = dataclasses.replace(cfg, equilib_model="item_reader", nstep_max=3)
+    tbase.register_eq_model("item_reader", _host_reading_slab())
+    try:
+        with fwAD.dual_level():
+            if kind == "graph":
+                loop = graphed.StaticLoop(cfg, params, v0, st)
+                load = lambda: loop.load(params, v0, st)   # noqa: E731
+            elif kind == "adjoint":
+                loop = ga.StaticAdjoint(cfg, params, v0, st)
+                carry = ttrace.initial_carry(cfg, params, v0, st)
+                load = lambda: loop.load_inputs(carry, tree_leaves(params))   # noqa: E731
+            else:
+                dual = fwAD.make_dual(v0, torch.ones_like(v0))
+                loop = gt.StaticTangent(cfg, params, dual, st)
+                load = lambda: loop.load(params, dual, st)   # noqa: E731
+            before = (graphed.CAPTURES, ga.CAPTURES, gt.CAPTURES)
+            with pytest.raises(ValueError, match=r"'item_reader'.*piece 'step'.*reads the host "
+                                                 r"\(_local_scalar_dense\)"):
+                graphed.Captured(loop, load)
+            assert (graphed.CAPTURES, ga.CAPTURES, gt.CAPTURES) == before
+    finally:
+        tbase.EQ_MODELS.pop("item_reader")
+    # the toy, which reads nothing on the host, passes the same audit, and
+    # the loop runs on after it, as the capture's warm-up does (under
+    # no_grad, as graphed.Captured is made)
+    tbase.register_eq_model("item_reader", _port_toy())
+    try:
+        with torch.no_grad():
+            if kind == "graph":
+                loop = graphed.StaticLoop(cfg, params, v0, st)
+                load = lambda: loop.load(params, v0, st)   # noqa: E731
+            elif kind == "adjoint":
+                loop = ga.StaticAdjoint(cfg, params, v0, st)
+                carry = ttrace.initial_carry(cfg, params, v0, st)
+                load = lambda: loop.load_inputs(carry, tree_leaves(params))   # noqa: E731
+            else:
+                return      # the toy's jacobians are forward mode: no tangents (C12)
+            load()
+            capture_audit.require_capturable(loop)
+            load()
+            for _ in range(2):
+                for fn in loop.functions().values():
+                    fn()
+    finally:
+        tbase.EQ_MODELS.pop("item_reader")

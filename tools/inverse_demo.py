@@ -13,9 +13,10 @@ script takes them by jax.jvp).  The JAX package's own run of this demo
 ends FAIL (artifacts/inverse_demo.txt: the fit does not converge), so
 nothing here promises convergence; it is held only at its starting point
 (the loss, its gradient and the two Jacobian columns there).  The
-trajectories go through ``trace_rays``: on the card the gradient takes the
-graphed adjoint (``trace.route``), the forward-mode columns the plain
-tracer.
+trajectories go through ``trace_rays``: on the card the loss takes the
+graph route, the gradient the graphed adjoint and the forward-mode
+columns the tangent graph (``trace.route``), each captured at its first
+call and replayed after.
 
     python tools/inverse_demo.py                  # on the card
     python tools/inverse_demo.py --device cpu --iters 5 --newton 1 --steps 20
@@ -94,17 +95,19 @@ class InverseProblem:
         grad, = torch.autograd.grad(loss, theta)
         return loss.detach(), grad
 
+    def jvp_column(self, theta, i):
+        """(residual, J e_i): column i of the trajectory Jacobian by forward
+        mode, one pass."""
+        tangent = torch.zeros_like(theta)
+        tangent[i] = 1.0
+        with fwAD.dual_level():
+            return tuple(fwAD.unpack_dual(self.residual(fwAD.make_dual(theta.detach(), tangent))))
+
     def jvp_columns(self, theta):
         """(residual, J e0, J e1): the two columns of the trajectory
         Jacobian by forward mode, one pass each."""
-        cols = []
-        for i in range(2):
-            tangent = torch.zeros_like(theta)
-            tangent[i] = 1.0
-            with fwAD.dual_level():
-                r, col = fwAD.unpack_dual(self.residual(fwAD.make_dual(theta.detach(), tangent)))
-            cols.append(col)
-        return r, cols[0], cols[1]
+        r, j0 = self.jvp_column(theta, 0)
+        return r, j0, self.jvp_column(theta, 1)[1]
 
     def gn_system(self, theta):
         """(loss, J^T J, J^T r) of the Gauss-Newton step."""
@@ -117,17 +120,35 @@ class InverseProblem:
             return (self.residual(theta) ** 2).sum()
 
 
+def _timed(fn, device):
+    """(seconds on the host's clock, fn()), the device synchronized
+    around the call."""
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return time.perf_counter() - t0, out
+
+
 def start_point(nstep_max=80, device="cuda"):
     """What the demo is held to: theta, the loss, its gradient and the two
-    Jacobian columns at the starting point, and the routes that the
-    gradient and the columns take (``trace.route``)."""
+    Jacobian columns at the starting point; the routes that the loss, the
+    gradient and the columns take (``trace.route``); and the seconds of
+    each part in this order (the loss alone, then the loss with its
+    gradient, then each column), the first call of a route with its
+    capture."""
     prob = InverseProblem(nstep_max, device)
-    loss, grad = prob.value_and_grad(prob.start)
-    r, j0, j1 = prob.jvp_columns(prob.start)
     dev = prob.v0.device
+    seconds = {}
+    seconds["loss"], _ = _timed(lambda: prob.loss(prob.start), dev)
+    seconds["gradient"], (loss, grad) = _timed(lambda: prob.value_and_grad(prob.start), dev)
+    seconds["column 0"], (r, j0) = _timed(lambda: prob.jvp_column(prob.start, 0), dev)
+    seconds["column 1"], (_, j1) = _timed(lambda: prob.jvp_column(prob.start, 1), dev)
     return {"theta": prob.start, "loss": loss, "grad": grad, "residual": r,
-            "j0": j0, "j1": j1, "target": prob.target,
-            "routes": {"gradient": route(prob.cfg, True, dev),
+            "j0": j0, "j1": j1, "target": prob.target, "seconds": seconds,
+            "routes": {"loss": route(prob.cfg, False, dev),
+                       "gradient": route(prob.cfg, True, dev),
                        "columns": route(prob.cfg, False, dev, tangents=True)}}
 
 

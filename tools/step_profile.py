@@ -234,7 +234,7 @@ def graph_window(case, steps, device):
     wnd = step_window(case, steps, device, trace_rays)
     c = dataclasses.replace(cfg, nstep_max=steps)
     launch_us = {}
-    for name, g in graphed._CACHE[graphed.cache_key(c, params, v)].graphs.items():
+    for name, g in graphed._CACHE[("graph", *graphed.cache_key(c, params, v))].graphs.items():
         # the host's part of one replay: the graph launch, with the stream
         # idle before it (the next call loads its inputs again)
         torch.cuda.synchronize(device)
