@@ -18,7 +18,7 @@ every kernel library, runs in every call):
   (32,768 rays x 500 steps, f64 and f32, timed against the plain twin and
   its bound, the card filled at 524,288 rays, the CLI); the damped example
   through the kernel and the damped batch (32,768 rays x 400 steps).
-* graph, phases 29, 31, 32 and 34.  29: every path that trace_rays sends
+* graph, phases 29, 31, 32, 34 and 35.  29: every path that trace_rays sends
   to the graphed tracer (tracing/graphed.py: the slab under RK4 with the
   equilibrium-gradient slots, with the autodiff derivatives, under SG
   with a fixed substep budget and with its loop; Solovev under SG and
@@ -35,18 +35,26 @@ every kernel library, runs in every call):
   against eager, with ms and peak GiB.  34: the slab module registered
   under a new name through the graph route, the adjoint graph and the
   tangent graph, each against its eager twin, and under "slab" through
-  the graph route, not B1; a model that reads the host refused by name
-  before any capture.
+  the graph route, not B1; a toy with fields alone (its jacobians
+  forward over reverse inside the tangents' level) through the tangent
+  graph against eager forward AD; a model that reads the host refused
+  by name before any capture.  35: phase 32's columns with Solovev
+  registered without its closed forms (jacobians forward over reverse),
+  through the tangent graph at the same size, held to phase 32's
+  closed-form columns, with ms, peak GiB and the census of one outer
+  step of both.
 * adjoint, phases 30, 33, 9, 13 and 16, every one through the graphed
   adjoint (tracing/graphed_adjoint.py: each outer step and its VJP
   captured once as CUDA graphs, the backward replaying the VJP last step
   first).  30: every configuration of that route (RK4 on the slab, damped
   slab, slab with the equilibrium-gradient slots, Solovev, EQDSK and
-  damped mirror; SG with a fixed substep budget on the slab; the
-  compensated float32 carry) at ADJOINT_RAYS rays x ADJOINT_STEPS steps
-  with trajectories, the loss and every gradient held to eager autograd
-  through trace_batch (ADJOINT_RTOL of each leaf's scale), the forward bit
-  for bit.  33: backwards whose cache entry was evicted before they ran
+  damped mirror; SG with a fixed substep budget on the slab and on
+  Solovev; the compensated float32 carry) at ADJOINT_RAYS rays x
+  ADJOINT_STEPS steps with trajectories, the loss and every gradient
+  held to eager autograd through trace_batch (ADJOINT_RTOL of each
+  leaf's scale), the forward bit for bit; the default call cuts Solovev
+  SG to ADJOINT_CUT_DEFAULT and says so.  33: backwards whose cache
+  entry was evicted before they ran
   (one loss over five step counts; a forward, four other captures, then
   the backward), each entry captured again by its backward, the
   gradients held to eager autograd.  9: the training step of
@@ -104,7 +112,10 @@ every kernel library, runs in every call):
   graphed paths' host reads and capture time; B1's
   device time at 256 and 32,768 rays; trace_rays' fixed cost per call);
   the backward pass of one outer step in the three adjoints of phases 9,
-  13 and 16, eager and graphed;
+  13 and 16, eager and graphed; one outer step with tangents through the
+  tangent graph on the inverse demo's config, closed form and forward
+  mode; the bound of one outer step on each compiled route and its share
+  of the device time per step;
   26 tools/op_roofline.py (the op-rate kernels of csrc/op_rates.cu, each
   held to its plain chain at the full depth and one iteration short, and
   B1 priced at their rates beside the published-peak bound); 27
@@ -189,12 +200,17 @@ GRAPH_STEPS = 50
 ADJOINT_RAYS = 4096     # phase 30: each graphed adjoint against eager autograd
 ADJOINT_STEPS = 50
 ADJOINT_RTOL = 1e-10    # of each leaf's largest eager gradient, f64
+# phase 30 in the default call: Solovev SG with a fixed budget at fewer rays
+# and steps (its eager twin took 44-61 s at ADJOINT_RAYS x ADJOINT_STEPS on
+# an H100 80GB HBM3, 700 W)
+ADJOINT_CUT_DEFAULT = {"solovev_sg_fixed_budget": (1024, 10)}
 ADJOINT_RTOL_F32 = 2e-6     # ... f32: 16 ulp (the steps summed in another order)
 TANGENT_RTOL = 1e-10    # phases 31, 32, 34: tangents of their eager scale, f64
 TANGENT_RTOL_F32 = 2e-6     # ... f32
 # phase 31 in the default call: the SG loop form on Solovev at fewer steps
 # (its eager forward-AD twin took 93.1 s at GRAPH_STEPS on an H100 80GB HBM3, 700 W)
 TANGENT_STEPS_DEFAULT = {"solovev_sg": 20}
+TOY_SHIFT = 2.0e-3      # phase 34: the toy model's shift of the slab's profiles in x, m
 EVICT_RAYS = 1024       # phase 33: the programs whose backward outlives its cache entry
 EVICT_STEPS = 20
 # post-processing (phases 17-19): the rays the CPU recomputes, and the
@@ -1326,7 +1342,7 @@ def graph_phase(run):
           f"{graphed.CACHE_SIZE}, {graphed.CHUNK} substep pass per read on {card}")
 
 
-def adjoint_phase(run):
+def adjoint_phase(run, full):
     """Phase 30: every configuration of the graphed adjoint against eager
     autograd through trace_batch on the card, at ADJOINT_RAYS rays x
     ADJOINT_STEPS steps with trajectories: a loss that reads every floating
@@ -1334,7 +1350,9 @@ def adjoint_phase(run):
     (captured at the first call, replayed at the second) and through
     trace_batch; the forward bit for bit, the loss bit for bit, every
     gradient (floating Params leaves, v0, pwr_wt) within ADJOINT_RTOL
-    (ADJOINT_RTOL_F32 in float32) of the leaf's largest eager gradient."""
+    (ADJOINT_RTOL_F32 in float32) of the leaf's largest eager gradient.
+    ``full``: every config at that size, else those of
+    ADJOINT_CUT_DEFAULT at their cut rays and steps (the line says so)."""
     from rays_tpu_torch.core.types import tree_leaves, tree_map
     from rays_tpu_torch.tracing import fused_slab, graphed_adjoint
     from rays_tpu_torch.tracing.trace import RayResults, route, trace_batch, trace_rays
@@ -1364,7 +1382,14 @@ def adjoint_phase(run):
 
     t_phase = time.perf_counter()
     for name, (cfg, params, v, st, w) in cases.items():
-        cfg = dataclasses.replace(cfg, nstep_max=ADJOINT_STEPS)
+        rays, steps, cut = ADJOINT_RAYS, ADJOINT_STEPS, ""
+        if name in ADJOINT_CUT_DEFAULT:
+            cut_rays, cut_steps = ADJOINT_CUT_DEFAULT[name]
+            rays, rays_cut = _cut(full, ADJOINT_RAYS, cut_rays, "rays", "adjoint")
+            steps, steps_cut = _cut(full, ADJOINT_STEPS, cut_steps, "steps", "adjoint")
+            cut = rays_cut + steps_cut
+            v, st, w = v[:rays], st[:rays], w[:rays]
+        cfg = dataclasses.replace(cfg, nstep_max=steps)
         which = route(cfg, True, dev)
         require(which == "adjoint", f"{name}: route {which}, not the adjoint graph")
         loss_and_grads(trace_batch, dataclasses.replace(cfg, nstep_max=2), params, v, st, w)
@@ -1377,7 +1402,7 @@ def adjoint_phase(run):
         per_call = (r1 - r0, graphed_adjoint.REPLAYS - r1)
         require(c1 - c0 == 1 and graphed_adjoint.CAPTURES == c1,
                 f"{name}: {graphed_adjoint.CAPTURES - c0} captures in two calls")
-        require(per_call == (2 * ADJOINT_STEPS,) * 2, f"{name}: replays per call {per_call}")
+        require(per_call == (2 * steps,) * 2, f"{name}: replays per call {per_call}")
         require(fused_slab.LAUNCHES == l0, f"{name}: the adjoint launched B1")
         bad = [f for f, g, r in zip(RayResults._fields, got, ref)
                if (g is None) != (r is None) or (r is not None and not torch.equal(g, r))]
@@ -1392,14 +1417,15 @@ def adjoint_phase(run):
                     f"{name}: gradient {i} differs by {err:.3e} of scale {scale:.3e}")
             worst = max(worst, err / scale if scale else 0.0)
             same += bool(torch.equal(g, r))
-        print(f"phase 30 {name} {ADJOINT_RAYS} rays x {ADJOINT_STEPS} steps "
+        print(f"phase 30 {name} {rays} rays x {steps} steps{cut} "
               f"{str(v.dtype).replace('torch.', '')}, route {which}: forward and loss equal to "
               f"trace_batch's bit for bit; {len(grads)} gradients within {worst:.3e} of scale "
               f"(bound {rtol}), {same} bit-equal; 1 capture, {per_call[0]} replays a "
               f"call; eager {eager_ms:.1f} ms, graphed {graphed_ms:.1f} ms "
               f"(x{eager_ms / graphed_ms:.2f}), first call {first_ms:.1f} ms; peak "
               f"{peak / 2**30:.2f} GiB graphed, {eager_peak / 2**30:.2f} GiB eager")
-        run.paths.append({"name": f"adjoint_{name}", "route": which, "ms": graphed_ms,
+        run.paths.append({"name": f"adjoint_{name}", "route": which, "rays": rays,
+                          "steps": steps, "ms": graphed_ms,
                           "eager_ms": eager_ms, "first_ms": first_ms, "peak_gib": peak / 2**30,
                           "eager_peak_gib": eager_peak / 2**30, "worst_grad_rel": worst,
                           "bit_equal_grads": same, "grads": len(grads)})
@@ -1536,7 +1562,8 @@ def inverse_columns_phase(run):
     fan replicated to N_RAYS rays, each column through the tangent graph
     (trace_rays; the first column's call captures) and eagerly
     (trace_batch), timed by CUDA events with the peak memory of each
-    call; the primal bit for bit, the tangents within TANGENT_RTOL."""
+    call; the primal bit for bit, the tangents within TANGENT_RTOL.
+    Returns the graphed columns, {i: (trajectories, their tangents)}."""
     import torch.autograd.forward_ad as fwAD
 
     from rays_tpu_torch import examples
@@ -1561,10 +1588,11 @@ def inverse_columns_phase(run):
 
     t_phase = time.perf_counter()
     c0 = graphed_tangent.CAPTURES
-    rows = {}
+    rows, columns = {}, {}
     for i in (0, 1):
         eager_ms, ref, eager_peak = timed_peak(lambda: column(trace_batch, i))
         graphed_ms, got, peak = timed_peak(lambda: column(trace_rays, i))
+        columns[i] = got
         require(torch.equal(got[0], ref[0]), f"column {i}: the trajectories differ")
         scale = float(ref[1].abs().max())
         err = float((got[1] - ref[1]).abs().max())
@@ -1587,6 +1615,100 @@ def inverse_columns_phase(run):
                       "eager_ms": [rows[0][0], rows[1][0]],
                       "peak_gib": [rows[0][3] / 2**30, rows[1][3] / 2**30],
                       "eager_peak_gib": [rows[0][1] / 2**30, rows[1][1] / 2**30]})
+    return columns
+
+
+def jacfwd_columns_phase(run, closed):
+    """Phase 35: phase 32's columns through a model whose jacobians come by
+    forward mode: Solovev registered with its fields, geometry and
+    validity checks alone (tools/step_profile.py's JACFWD_MODEL), so that
+    inside the column's dual level ``base.equilibrium`` takes them forward
+    over reverse.  The same inputs at N_RAYS rays x INVERSE_STEPS steps
+    through trace_rays (the tangent graph; the first column's call
+    captures), timed by CUDA events with the peak memory of each call;
+    primal and tangents within TANGENT_RTOL of scale of phase 32's
+    closed-form columns ``closed``.  Then the census of one outer step
+    with the column's tangent, closed form against forward mode."""
+    import torch.autograd.forward_ad as fwAD
+
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.models import base
+    from rays_tpu_torch.tracing import graphed_tangent
+    from rays_tpu_torch.tracing.trace import route, trace_rays
+    from rays_tpu_torch.utils import op_census
+
+    card, dev = run.card, run.dev
+    inv, sp = _tool("inverse_demo"), _tool("step_profile")
+    prob = inv.InverseProblem(INVERSE_STEPS, str(dev))
+    v, st, w = examples.replicate_rays(prob.v0, prob.st, prob.pwr, N_RAYS)
+    cfg = dataclasses.replace(prob.cfg, equilib_model=sp.register_jacfwd_model())
+
+    def dual_params(i):
+        tangent = torch.zeros_like(prob.start)
+        tangent[i] = 1.0
+        th = fwAD.make_dual(prob.start, tangent)
+        return prob.params._replace(eq=prob.params.eq._replace(kappa=th[0], iota0=th[1]))
+
+    def column(c, i):
+        with fwAD.dual_level(), torch.no_grad():
+            res = trace_rays(c, dual_params(i), v, st, w)
+            r, t = fwAD.unpack_dual(res.ray_vec[:, :, 0:3])
+        require(not r.requires_grad and not t.requires_grad, "the column kept autograd history")
+        return r, t
+
+    def census(c):
+        with fwAD.dual_level():
+            return op_census.step_census(c, dual_params(0), v, st, w)
+
+    t_phase = time.perf_counter()
+    try:
+        require(route(cfg, False, dev, tangents=True) == "tangent", "the columns' route")
+        c0, r0 = graphed_tangent.CAPTURES, graphed_tangent.REPLAYS
+        rows = {}
+        for i in (0, 1):
+            ms, (r, t), peak = timed_peak(lambda: column(cfg, i))
+            ref_r, ref_t = closed[i]
+            worst = []
+            for got, ref in ((r, ref_r), (t, ref_t)):
+                scale = float(ref.abs().max())
+                err = float((got - ref).abs().max())
+                require(bool(torch.isfinite(got).all()) and scale > 0
+                        and err <= TANGENT_RTOL * scale,
+                        f"column {i}: differs from the closed form's by {err:.3e} of scale "
+                        f"{scale:.3e}")
+                worst.append(err / scale)
+            rows[i] = (ms, peak, worst)
+        again_ms, _, _ = timed_peak(lambda: column(cfg, 0))
+        require(graphed_tangent.CAPTURES - c0 == 1,
+                f"{graphed_tangent.CAPTURES - c0} captures for the two columns")
+        require(graphed_tangent.REPLAYS - r0 == 3 * INVERSE_STEPS,
+                f"{graphed_tangent.REPLAYS - r0} replays for three columns")
+        closed_census, jacfwd_census = census(prob.cfg), census(cfg)
+    finally:
+        base.EQ_MODELS.pop(sp.JACFWD_MODEL, None)
+    for i, (ms, peak, (r_rel, t_rel)) in rows.items():
+        first = " (first call, with the capture)" if i == 0 else ""
+        print(f"phase 35 inverse demo column {i} by forward-mode jacobians ({sp.JACFWD_MODEL}), "
+              f"{N_RAYS} rays x {INVERSE_STEPS} RK4 steps f64 with trajectories, route tangent: "
+              f"{ms:.1f} ms{first}, {peak / 2**30:.2f} GiB; against phase 32's closed-form "
+              f"column: trajectories within {r_rel:.3e}, tangents within {t_rel:.3e} of scale "
+              f"(bound {TANGENT_RTOL})")
+    parts = []
+    for tag, c in (("closed form", closed_census), ("forward mode", jacfwd_census)):
+        cls = ", ".join(f"{k} {n} ({e:.0f})" for k, (n, e) in c.by_class().items() if n)
+        parts.append(f"{tag} {c.n_ops} aten ops, {sum(c.elements.values()):.1f} elements per "
+                     f"ray, {c.host_reads} host reads (by class, ops (elements per ray): {cls})")
+    print(f"phase 35 one outer step with the column's tangent, census at {N_RAYS} rays: "
+          + "; ".join(parts))
+    print(f"phase 35 column 0 again {again_ms:.1f} ms (replayed); 1 capture, "
+          f"{INVERSE_STEPS} replays a column; in {time.perf_counter() - t_phase:.1f} s on {card}")
+    run.paths.append({"name": "inverse_columns_jacfwd", "route": "tangent", "rays": N_RAYS,
+                      "steps": INVERSE_STEPS, "ms": [rows[0][0], rows[1][0], again_ms],
+                      "peak_gib": [rows[0][1] / 2**30, rows[1][1] / 2**30],
+                      "worst_rel": [max(rows[i][2]) for i in (0, 1)],
+                      "census_ops": [closed_census.n_ops, jacfwd_census.n_ops],
+                      "census_elements_per_ray": [sum(closed_census.elements.values()),
+                                                  sum(jacfwd_census.elements.values())]})
 
 
 def eviction_phase(run):
@@ -1684,8 +1806,12 @@ def registered_model_phase(run):
     slab module registered under a new name takes the graph route, the
     adjoint graph and the tangent graph, each held to its eager twin at
     GRAPH_RAYS rays x GRAPH_STEPS steps; registered under "slab" it takes
-    the graph route, not B1; a model that reads the host is refused with a
-    ValueError naming it before anything is captured."""
+    the graph route, not B1; a toy with ``fields`` alone (the slab's
+    fields shifted in x, whose jacobians come forward over reverse inside
+    the tangents' level) takes its tangents through the tangent graph,
+    held to eager forward AD through trace_batch at the same size; a
+    model that reads the host is refused with a ValueError naming it
+    before anything is captured."""
     import types
 
     from rays_tpu_torch import examples
@@ -1741,6 +1867,40 @@ def registered_model_phase(run):
                          f"{worst:.3e} of scale, tangents within {tworst:.3e}")
         finally:
             base.EQ_MODELS.pop(name)
+    # the toy: fields only, so base.equilibrium takes its jacobians by
+    # forward mode, forward over reverse inside the tangents' dual level
+    def shifted(rvec):
+        return rvec - TOY_SHIFT * torch.eye(3, dtype=rvec.dtype, device=rvec.device)[0]
+
+    toy = types.SimpleNamespace(
+        fields=lambda static, p, species, rvec: slab.fields(static, p, species, shifted(rvec)),
+        geom_err=slab.geom_err,
+        err=lambda static, p, species, rvec: slab.err(static, p, species, shifted(rvec)))
+    c = dataclasses.replace(cfg, equilib_model="shifted_slab")
+    moved = v.clone()
+    moved[:, 0] += TOY_SHIFT
+    base.register_eq_model("shifted_slab", toy)
+    try:
+        which = route(c, False, dev, tangents=True)
+        require(which == "tangent", f"the toy's tangents took route {which}")
+        direction = tangent_direction(params, moved, w, seed=36)
+        t_toy = time.perf_counter()
+        ref = traced_tangents(trace_batch, c, params, moved, st, w, direction)
+        eager_s = time.perf_counter() - t_toy
+        c0, r0 = graphed_tangent.CAPTURES, graphed_tangent.REPLAYS
+        got = traced_tangents(trace_rays, c, params, moved, st, w, direction)
+        require(graphed_tangent.CAPTURES - c0 == 1 and graphed_tangent.REPLAYS - r0 == GRAPH_STEPS,
+                f"the toy's tangent graph: {graphed_tangent.CAPTURES - c0} captures, "
+                f"{graphed_tangent.REPLAYS - r0} replays")
+        tworst = tangent_errors(got, ref, "the toy")
+        require(tworst <= TANGENT_RTOL, f"the toy's tangents differ by {tworst:.3e}")
+        require(float(ref["end_ray_vec"][1].abs().max()) > 0, "the toy's tangents are zero")
+        require(int(ref["npoints"][0].max()) > GRAPH_STEPS // 2, "the toy's rays stopped early")
+        lines.append(f"the toy with fields alone ('shifted_slab', jacobians forward over "
+                     f"reverse): tangent graph primal bit for bit, tangents within "
+                     f"{tworst:.3e} of eager forward AD ({eager_s:.1f} s eager)")
+    finally:
+        base.EQ_MODELS.pop("shifted_slab")
     require(fused_slab.LAUNCHES == l0, "a registered model launched B1")
 
     def fields_and_jac(static, p, species, rvec):
@@ -2440,11 +2600,12 @@ VPU_ROOFLINE_CHAINS = "scripts/vpu_roofline.py:41"      # _chain, scanned by mea
 VPU_ROOFLINE_MATVEC = "scripts/vpu_roofline.py:104"     # dot_body, the tiny dot_general
 
 
-def _cut(full, depth, default, what):
-    """(depth, the text that states the cut) of a profile phase."""
+def _cut(full, depth, default, what, group="profile"):
+    """(depth, the text that states the cut) of a phase of ``group``."""
     if full:
         return depth, ""
-    return default, f" ({what} cut from {depth} to {default} in the default call; --group profile runs all)"
+    return default, (f" ({what} cut from {depth} to {default} in the default call; "
+                     f"--group {group} runs all)")
 
 
 def profile_phases(run, full):
@@ -2510,6 +2671,20 @@ def profile_phases(run, full):
     for (name, tag), w in rep["vjp"].items():
         print(f"phase 25 {name} {N_RAYS} rays f64 with trajectories, one outer step's backward "
               f"pass, {tag}: {window(w)}{cut}{vjp_cut}")
+    require(set(rep["tangents"]) == set(sp.TANGENT_PATHS), f"tangent windows {rep['tangents']}")
+    for name, w in rep["tangents"].items():
+        c = rep["tangent_census"][name]
+        print(f"phase 25 {name} {N_RAYS} rays f64 with tangents, tangent graph: census "
+              f"{c.n_ops} aten ops and {sum(c.elements.values()):.1f} elements per ray per "
+              f"outer step; {window(w)}{cut}")
+    for (kind, name), b in rep["bounds"].items():
+        share = ("device time not measured" if b["device_ms"] is None else
+                 f"share {b['bound_ms'] / b['device_ms']:.5g} of {b['device_ms']:.3f} ms of "
+                 f"device time per step")
+        print(f"phase 25 bound of one outer step, {kind} route, {name}, {N_RAYS} rays f64: "
+              f"{b['ops'] / N_RAYS:.1f} operations and {b['bytes'] / N_RAYS:.1f} bytes per ray; "
+              f"operations {b['ms_ops']:.5g} ms, bytes {b['ms_bytes']:.5g} ms; bound "
+              f"{b['bound_ms']:.5g} ms by {b['bound_by']}; {share}")
     # B1 at two sizes (warm-up, profiled call, 3 timed calls, 5 hidden
     # behind the spin) and trace_rays at four (warm-up, 3 single calls, 3
     # bursts of 5)
@@ -2529,7 +2704,15 @@ def profile_phases(run, full):
                       "vjp": {f"{k}_{t}": {"kernels": w["kernels"], "device_ms": w["device_us"] / 1e3,
                                            "wall_ms": w["wall_us"] / 1e3,
                                            "busy_share": w["busy_share"]}
-                              for (k, t), w in rep["vjp"].items()}})
+                              for (k, t), w in rep["vjp"].items()},
+                      "tangent": {k: {"kernels": w["kernels"], "device_ms": w["device_us"] / 1e3,
+                                      "wall_ms": w["wall_us"] / 1e3,
+                                      "busy_share": w["busy_share"]}
+                                  for k, w in rep["tangents"].items()},
+                      "bounds": {f"{kind}_{k}": {"bound_ms": b["bound_ms"],
+                                                 "bound_by": b["bound_by"],
+                                                 "device_ms": b["device_ms"]}
+                                 for (kind, k), b in rep["bounds"].items()}})
 
     # phase 26: the op-class rates and B1 priced with them
     t0 = time.perf_counter()
@@ -2702,10 +2885,12 @@ def main(argv=None):
     if "graph" in groups:
         graph_phase(run)
         tangent_phase(run, not every)
-        inverse_columns_phase(run)
+        closed_columns = inverse_columns_phase(run)
         registered_model_phase(run)
+        jacfwd_columns_phase(run, closed_columns)
+        del closed_columns
     if "adjoint" in groups:
-        adjoint_phase(run)
+        adjoint_phase(run, not every)
         eviction_phase(run)
         training_phase(run)
     if "plain" in groups:

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from rays_tpu_torch import constants
 
@@ -76,7 +77,15 @@ def derive_eq_point(raw: RawEq, species, rf) -> EqPoint:
     )
 
 
-def value_and_jacfwd(f, x):
+def forward_level_open() -> bool:
+    """Whether a forward-AD level (``forward_ad.dual_level``) is open.
+    Inside one, ``torch.func.jvp`` cannot open its own: PyTorch's forward
+    AD does not nest levels.  x need not be dual for this to hold (a
+    tangent on a Params leaf alone leaves the first step's x primal)."""
+    return fwAD._current_level >= 0
+
+
+def value_and_jacfwd(f, x, create_graph=False):
     """Values and jacobians of ``f`` at a batch of points x (B, 3) by
     forward mode, one JVP per coordinate (``rays_tpu.core.eq_point``).
 
@@ -87,7 +96,16 @@ def value_and_jacfwd(f, x):
     jb[b, j, i] = dB_j/dx_i, jn[b, s, i] and jt[b, s, i].  The tangents are
     rows of an identity made on x's device (no Python number is written
     into a tensor, so nothing is copied from the host: the graph routes
-    capture this)."""
+    capture this).
+
+    Inside a caller's forward-AD level the jacobians come by reverse mode
+    instead (``_value_and_jac_in_level``): the caller's tangents then ride
+    through ``f`` and its backward pass, forward over reverse, and the
+    jacobian's tangent is the second derivative that ``jax.jvp`` over
+    ``jax.jacfwd`` gives.  ``create_graph``: the caller also takes a
+    reverse-mode gradient through the results (only read in a level)."""
+    if forward_level_open():
+        return _value_and_jac_in_level(f, x, create_graph)
     unit = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
     columns = []
     for i in range(x.shape[-1]):
@@ -95,3 +113,47 @@ def value_and_jacfwd(f, x):
         columns.append(dy)
     jac = tuple(torch.stack(cols, dim=-1) for cols in zip(*columns))
     return y, jac
+
+
+def _without_history(t):
+    """``t`` with its tangent and no autograd history (views, no copy)."""
+    primal, tangent = fwAD.unpack_dual(t)
+    primal = primal.detach()
+    return primal if tangent is None else fwAD.make_dual(primal, tangent.detach())
+
+
+def _value_and_jac_in_level(f, x, create_graph):
+    """``value_and_jacfwd`` inside an open forward-AD level: ``f`` runs
+    once on x (dual or not) under autograd, and one batched backward pass
+    over a basis of its output components (``is_grads_batched``) gives
+    every row of every ray's jacobian.  Without ``create_graph`` the
+    backward is recorded by forward AD alone and the results carry their
+    tangents and no autograd history (the values are stripped of the
+    graph that the backward pass needed); with it they keep the graph to
+    x and the Params leaves, so that an outer gradient runs through them.
+    An output that depends on neither has zero jacobian rows."""
+    primal, tangent = fwAD.unpack_dual(x)
+    with torch.enable_grad():
+        if create_graph and x.requires_grad:
+            wrt = inp = x
+        else:
+            wrt = primal.detach().requires_grad_()
+            inp = wrt if tangent is None else fwAD.make_dual(wrt, tangent)
+        y = f(inp)
+        flat = torch.cat([t.reshape(t.shape[0], -1) for t in y], dim=-1)   # (B, K)
+        n, k = flat.shape
+        if flat.requires_grad:
+            basis = torch.eye(k, dtype=flat.dtype, device=flat.device)[:, None, :]
+            rows, = torch.autograd.grad(flat, wrt, basis.expand(k, n, k),
+                                        create_graph=create_graph, is_grads_batched=True,
+                                        allow_unused=True, materialize_grads=True)  # (K, B, 3)
+        else:
+            rows = flat.new_zeros((k,) + tuple(x.shape))
+    jac, start = [], 0
+    for t in y:
+        width = t[0].numel()
+        jac.append(rows[start:start + width].movedim(0, 1).reshape(t.shape + (x.shape[-1],)))
+        start += width
+    if not create_graph:
+        y = map(_without_history, y)
+    return tuple(y), tuple(jac)

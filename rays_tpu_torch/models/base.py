@@ -14,7 +14,10 @@ do, so that a ray step fetches each spline row once.  A model whose
 closed forms cover only some of its options says which with
 ``supports_analytic_jac(static, params)``.  A model with neither closed
 form, or outside them, gets its jacobians by forward mode through
-``fields`` (``core.eq_point.value_and_jacfwd``), as in the JAX package.
+``fields`` (``core.eq_point.value_and_jacfwd``), as in the JAX package;
+inside a caller's forward-AD level (tangents on the rays or the Params),
+by reverse mode on the caller's dual tensors, so that the tangents ride
+through the jacobian as through ``jax.jvp`` over ``jax.jacfwd``.
 
 All four models of the JAX package are here: the slab, the Solovev
 tokamak, the generic axisymmetric toroid (Solovev, EQDSK spline and EQDSK
@@ -29,6 +32,7 @@ import torch
 
 from rays_tpu_torch import constants
 from rays_tpu_torch.core.eq_point import EqPoint, RawEq, derive_eq_point, value_and_jacfwd
+from rays_tpu_torch.core.types import needs_grad
 from rays_tpu_torch.tracing.stop import StopCode
 
 # models registered by name (``register_eq_model``); the four built-in
@@ -108,7 +112,9 @@ def equilibrium(cfg, params, x) -> EqPoint:
     jacobians, validity from the geometry check and the positivity of the
     same ns and ts.  The jacobians come from the model's closed form where
     it has one that covers this config, else by forward mode through its
-    ``fields`` (rays_tpu/models/base.py:91-106)."""
+    ``fields`` (rays_tpu/models/base.py:91-106): forward over reverse
+    inside a forward-AD level, with the autograd graph kept for an outer
+    gradient where one is asked for (``needs_grad``)."""
     model = get_eq_model(cfg.equilib_model)
     st, p, sp = cfg.eq_static, params.eq, params.species
     analytic = getattr(model, "supports_analytic_jac", None)
@@ -121,7 +127,8 @@ def equilibrium(cfg, params, x) -> EqPoint:
             (bvec, ns, ts), (jb, jn, jt) = model.fields_and_jac(st, p, sp, x)
         else:
             (bvec, ns, ts), (jb, jn, jt) = value_and_jacfwd(
-                lambda xx: model.fields(st, p, sp, xx), x)
+                lambda xx: model.fields(st, p, sp, xx), x,
+                create_graph=needs_grad(params, x))
         geom = model.geom_err(st, p, x)
     err = _combine_err(geom, ns, ts)
     # jb[b, j, i] = dB_j/dx_i  ->  gradb[b, i, j], the reference convention

@@ -37,9 +37,12 @@ carry entry and substep entry, the trajectory and the residual):
 
 One tangent direction goes per call, as in the JAX demo.  The pieces run
 inside the caller's dual level (the caller has one: its tensors carry
-tangents); PyTorch's forward AD does not nest levels, so a model whose
-jacobians are taken by forward mode (``core.eq_point.value_and_jacfwd``)
-takes no tangents, eager or graphed.
+tangents).  PyTorch's forward AD does not nest levels, so inside it a
+model whose jacobians come by forward mode (``core.eq_point.value_and_jacfwd``)
+takes them by reverse mode instead, one batched backward pass per
+evaluation under autograd, recorded inside the capture as the adjoint
+graph's VJP piece is; its tangents are those of ``jax.jvp`` over
+``jax.jacfwd``, and the results keep no autograd history.
 
 ``CAPTURES`` counts the configurations captured, ``REPLAYS`` the piece
 replays.  ``trace_batch_static_tangent`` runs the same pieces called

@@ -11,8 +11,10 @@ elements it writes.  What it gives:
   launches (about) one kernel, so their number per outer step is the
   host-independent "kernels per step" of a path without a kernel;
 * elements written per ray, by class (``CLASSES``): the work of those
-  operations, counted over the outputs whose first axis is the ray batch;
-  an operation on tensors without that axis (a step counter, a scalar
+  operations, counted over the outputs whose first axis is the ray batch,
+  or whose second is (rows of a batched backward pass over the rays, as
+  ``core.eq_point`` takes a jacobian inside a forward-AD level); an
+  operation on tensors without that axis (a step counter, a scalar
   parameter) counts as an operation and writes no element per ray;
 * views and metadata (``aten.view``, ``expand``, ``select``, ``detach``,
   ``empty``, ...) apart: they launch no kernel; reads of a device value by
@@ -146,7 +148,7 @@ class OpCensus(TorchDispatchMode):
         else:
             c.ops[name] += 1
             per_ray = sum(t.numel() for t in _tensors(out)
-                          if t.dim() > 0 and t.shape[0] == c.n_rays) / c.n_rays
+                          if c.n_rays in t.shape[:2]) / c.n_rays
             if per_ray:
                 c.elements[name] += per_ray
         return out

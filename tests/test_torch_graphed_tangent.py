@@ -139,10 +139,10 @@ def test_static_tangent_equals_forward_ad(setups, name, save):  # noqa: F811
 # --- against jax.jvp ------------------------------------------------------------
 
 
-def _assert_matches_jax(port, ref, what):
+def _assert_matches_jax(port, ref, what, rtol=JAX_RTOL):
     """Each floating field's primal and tangent against the JAX package's
-    (``ref``: {field: (primal, tangent)} as numpy), within JAX_RTOL of the
-    JAX field's scale (the residuals: within JAX_RTOL, and their tangents'
+    (``ref``: {field: (primal, tangent)} as numpy), within ``rtol`` of the
+    JAX field's scale (the residuals: within ``rtol``, and their tangents'
     magnitudes but max_residuals'); integer fields equal."""
     for name, (jp, jt) in ref.items():
         p, t = port[name]
@@ -157,7 +157,7 @@ def _assert_matches_jax(port, ref, what):
             scale = np.abs(r).max() if r.size else 0.0
             if name in RESIDUAL_FIELDS and part == "primal":
                 scale = 1.0
-            np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=JAX_RTOL * scale,
+            np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=rtol * scale,
                                        err_msg=f"{what} {name} {part}")
 
 

@@ -26,6 +26,10 @@ on the CPU to what they count and to the JAX package's measurements.
 * ``profile_mirror``'s bare right-hand side, ``check_save`` and cell fetch
   on 16 rays equal what the trace computes at the same points (1e-12 of
   scale); its loops carry each piece's result.
+* ``step_profile.step_bound``, the least time of one outer step on each
+  compiled route: the census's elements but the copies at the f64 peak
+  against the carry's bytes (the adjoint's stack row is the carry) at the
+  memory rate; the VJP's census is more than twice the step's.
 * Every tool, with ``--device cpu`` at a tiny size, writes its report.
 """
 
@@ -389,3 +393,38 @@ def test_tool_writes_its_report_on_the_cpu(tool, args, tools, tmp_path, capsys):
     text = out.read_text()
     assert "cpu (host clock; no device metric)" in text
     assert f"wrote {out}" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("text", [examples.SLAB_ECH_90GHZ, examples.SLAB_ECH_DAMPED],
+                         ids=["slab", "damped"])
+def test_step_bound_prices_the_census_and_the_carry(tools, text):
+    """``step_profile.step_bound``: the census's elements per ray but the
+    copies as operations at the f64 peak, against the carry's bytes (the
+    adjoint's stack row, (2 nv + 3) 8 + 12 B per ray, read once) at the
+    memory rate; the larger is the bound."""
+    from rays_tpu_torch.tracing.trace import initial_carry
+
+    sp = tools["step_profile"]
+    cfg, params, v0, st, pwr = examples.setup_example(text, device="cpu")
+    cfg = dataclasses.replace(cfg, save_trajectory=True, nstep_max=3)
+    n = 8
+    case = (cfg, params, *examples.replicate_rays(v0, st, pwr, n))
+    nv = case[2].shape[1]
+    census = op_census.step_census(*case)
+    carry = initial_carry(cfg, params, case[2], case[3])
+    whole = sum(t.numel() * t.element_size() for t in carry) / n
+    floating = sum(t.numel() * t.element_size() for t in carry if t.is_floating_point()) / n
+    assert whole == (2 * nv + 3) * 8 + 12
+    row = (nv + 1) * 8
+    ops = n * sum(e for cls, (_, e) in census.by_class().items() if cls != "copy")
+    per_ray = {"graph": 2 * whole + row, "tangent": 2 * (whole + floating) + 2 * row,
+               "adjoint": whole + 2 * floating + row}
+    for kind, nbytes in per_ray.items():
+        b = sp.step_bound(census, case, kind)
+        assert b["ops"] == ops > 0 and b["bytes"] == n * nbytes, kind
+        assert b["ms_ops"] == pytest.approx(ops / 34e12 * 1e3, rel=1e-12)
+        assert b["ms_bytes"] == pytest.approx(n * nbytes / 3.35e12 * 1e3, rel=1e-12)
+        assert b["bound_ms"] == max(b["ms_ops"], b["ms_bytes"])
+        assert b["bound_by"] == ("bytes" if b["ms_bytes"] > b["ms_ops"] else "operations")
+    # the VJP piece recomputes the step and runs its backward: more work
+    assert sp.vjp_census(case).n_ops > 2 * census.n_ops

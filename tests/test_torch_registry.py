@@ -19,14 +19,16 @@ against the JAX package's (``rays_tpu.models.base.register_eq_model``,
   gradients within 1e-12 of scale) on the toy model and on a mirror
   without its closed forms; the tangent graph's twin equals eager forward
   AD on the built-in slab and Solovev modules registered under new names
-  (a model whose jacobians come by forward mode takes no tangents:
-  PyTorch's forward AD does not nest).  A model that reads the host is
-  refused with its name before anything is captured.
+  (the toy's tangents, whose jacobians come forward over reverse, are
+  held to the JAX package in tests/test_torch_jacfwd_tangents.py).  A
+  model that reads the host is refused with its name before anything is
+  captured; the toy passes the same audit on all three loops.
 * ``default_params`` equals the JAX one field for field; ``asarrays``
   makes every leaf a tensor of the dtype and device asked for.
 * A name nobody registered still raises ``NotImplementedError``.
 """
 
+import contextlib
 import dataclasses
 import types
 import torch.autograd.forward_ad as fwAD
@@ -425,10 +427,12 @@ def test_a_host_reading_model_is_refused_before_any_capture(kind):
         tbase.EQ_MODELS.pop("item_reader")
     # the toy, which reads nothing on the host, passes the same audit, and
     # the loop runs on after it, as the capture's warm-up does (under
-    # no_grad, as graphed.Captured is made)
+    # no_grad, as graphed.Captured is made; the tangent loop inside a dual
+    # level, where the toy's jacobians come forward over reverse)
     tbase.register_eq_model("item_reader", _port_toy())
+    level = fwAD.dual_level() if kind == "tangent" else contextlib.nullcontext()
     try:
-        with torch.no_grad():
+        with level, torch.no_grad():
             if kind == "graph":
                 loop = graphed.StaticLoop(cfg, params, v0, st)
                 load = lambda: loop.load(params, v0, st)   # noqa: E731
@@ -437,7 +441,9 @@ def test_a_host_reading_model_is_refused_before_any_capture(kind):
                 carry = ttrace.initial_carry(cfg, params, v0, st)
                 load = lambda: loop.load_inputs(carry, tree_leaves(params))   # noqa: E731
             else:
-                return      # the toy's jacobians are forward mode: no tangents (C12)
+                dual = fwAD.make_dual(v0, torch.ones_like(v0))
+                loop = gt.StaticTangent(cfg, params, dual, st)
+                load = lambda: loop.load(params, dual, st)   # noqa: E731
             load()
             capture_audit.require_capturable(loop)
             load()

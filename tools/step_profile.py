@@ -29,7 +29,19 @@ scripts/step_profile.py, for the eager tracer and the graphed one.
    the backward of ``2 --steps`` outer steps less that of ``--steps``,
    eager (autograd through ``trace_batch``) and through ``trace_rays``'s
    graphed adjoint (tracing/graphed_adjoint.py), with the same figures as
-   section 2.
+   section 2.  Then one outer step with forward-mode tangents through the
+   tangent graph (tracing/graphed_tangent.py) on the inverse demo's
+   configuration (Solovev, RK4; TANGENT_PATHS): with the closed-form
+   jacobians and with Solovev registered without them (JACFWD_MODEL,
+   forward over reverse), its census and its window.
+5. The least time one outer step could take on each compiled route at
+   ``--rays`` rays, f64 (``step_bound``): the census's elements per ray
+   (the graph route's step, the adjoint's VJP piece, the tangent graph's
+   JVP piece) as operations at the published f64 peak, against the bytes
+   the step must move (carry in and out; the tangent's carry tangents;
+   the adjoint's stack row and cotangents) at the published memory rate;
+   the larger of the two, and its share of the device time per step that
+   sections 2 and 4 measured.
 
 Writes build/step_profile.txt; every number beside the card's name and
 power limit.  On the CPU (``--device cpu``) sections 1 and 2 run the
@@ -46,15 +58,18 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from rays_tpu_torch import examples, run as runner  # noqa: E402
+from rays_tpu_torch.models import base, solovev  # noqa: E402
 from rays_tpu_torch.core.types import tree_leaves, tree_map, tree_to  # noqa: E402
 from rays_tpu_torch.tracing import fused_slab, graphed, rk45  # noqa: E402
-from rays_tpu_torch.tracing.trace import route, trace_batch, trace_rays  # noqa: E402
+from rays_tpu_torch.tracing.trace import initial_carry, route, trace_batch, trace_rays  # noqa: E402
 from rays_tpu_torch.utils import measure, op_census, op_rates  # noqa: E402
 
 N_RAYS = 32768
@@ -120,7 +135,15 @@ ADJOINT_CASES = {
     **{name: GRAPH_CASES[name] for name in ("slab_rk4_eq_gradients", "slab_sg_fixed_budget",
                                             "solovev_rk4", "eqdsk_rk4", "mirror_damped_rk4",
                                             "slab_compensated_f32")},
+    "solovev_sg_fixed_budget": ("solovev_sg", dict(sg_scan_substeps=3)),
 }
+# Solovev registered with its fields, geometry and validity checks alone:
+# its jacobians come by forward mode (models/base.equilibrium), forward
+# over reverse inside a caller's forward-AD level
+JACFWD_MODEL = "solovev_jacfwd"
+# section 4's tangent steps: the inverse demo's configuration (Solovev,
+# RK4) with the closed-form jacobians and through JACFWD_MODEL
+TANGENT_PATHS = ("solovev_rk4", "solovev_rk4_jacfwd")
 # the adjoints of chip_smoke.py's phases 9, 13 and 16, whose VJP per
 # outer step section 4 profiles
 VJP_PATHS = ("slab_rk4_damped", "slab_sg_fixed_budget", "eqdsk_rk4")
@@ -156,6 +179,127 @@ def graph_cases(device, n_rays, directory):
 def adjoint_cases(device, n_rays, directory):
     """The cases of ADJOINT_CASES (``_cases``)."""
     return _cases(device, n_rays, directory, ADJOINT_CASES)
+
+
+def register_jacfwd_model():
+    """Register JACFWD_MODEL (``base.register_eq_model``); returns its name."""
+    import types
+
+    base.register_eq_model(JACFWD_MODEL, types.SimpleNamespace(
+        fields=solovev.fields, geom_err=solovev.geom_err, err=solovev.err))
+    return JACFWD_MODEL
+
+
+def tangent_cases(device, n_rays):
+    """The cases of TANGENT_PATHS at ``n_rays`` rays, summaries only
+    (JACFWD_MODEL registered)."""
+    cfg, params, v0, st, pwr = examples.setup_example(examples.SOLOVEV_ECH_90GHZ, device=device)
+    cfg = dataclasses.replace(cfg, ode_solver_name="RK4_ODE", save_trajectory=False)
+    rest = (params, *examples.replicate_rays(v0, st, pwr, n_rays))
+    return {"solovev_rk4": (cfg, *rest),
+            "solovev_rk4_jacfwd": (dataclasses.replace(
+                cfg, equilib_model=register_jacfwd_model()), *rest)}
+
+
+def direction(params, v, w, seed):
+    """A tangent for every floating Params leaf, v0 and pwr_wt: each
+    tensor times N(0, 1) entries from a numpy seed, on its device."""
+    rng = np.random.default_rng(seed)
+
+    def draw(t):
+        return t * torch.as_tensor(rng.standard_normal(tuple(t.shape)), dtype=t.dtype,
+                                   device=t.device)
+
+    return (tree_map(lambda t: draw(t) if t.is_floating_point() else None, params),
+            draw(v), draw(w))
+
+
+def _duals(params, v, w, tangents):
+    """(Params, v0, pwr_wt) as dual tensors along ``tangents`` (of
+    ``direction``) at the current level."""
+    dp, dv, dw = tangents
+    return (tree_map(lambda t, d: t if d is None else fwAD.make_dual(t, d), params, dp),
+            fwAD.make_dual(v, dv), fwAD.make_dual(w, dw))
+
+
+def along(tracer, tangents):
+    """``tracer`` with forward-mode tangents along ``tangents``, inside a
+    dual level of its own, without gradients."""
+    def traced(cfg, params, v, s, w):
+        with fwAD.dual_level(), torch.no_grad():
+            p, vv, ww = _duals(params, v, w, tangents)
+            return tracer(cfg, p, vv, s, ww)
+
+    return traced
+
+
+def tangent_census(case, tangents):
+    """``op_census.step_census`` of ``case`` with forward-mode tangents."""
+    cfg, params, v, s, w = case
+    with fwAD.dual_level():
+        p, vv, ww = _duals(params, v, w, tangents)
+        return op_census.step_census(cfg, p, vv, s, ww)
+
+
+def _vjp_loss_and_leaves(case, n, tracer=trace_batch):
+    """(loss, floating Params leaves) of ``vjp_window``'s loss over n outer
+    steps of ``tracer``."""
+    cfg, params, v, s, w = case
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(t.is_floating_point()), params)
+    res = tracer(dataclasses.replace(cfg, nstep_max=n), p, v, s, w)
+    loss = (res.end_ray_vec[:, 0:3] ** 2 * res.initial_ray_power[:, None]).sum()
+    return loss, [t for t in tree_leaves(p) if t.requires_grad]
+
+
+def vjp_census(case, k=1):
+    """The census of one outer step's VJP as the adjoint graph's "vjp"
+    piece issues it (the step recomputed under autograd, then its
+    backward): the forward and backward of ``vjp_window``'s loss over
+    k + 1 outer steps less those of k, eagerly through trace_batch."""
+    def run(n):
+        def fn():
+            loss, leaves = _vjp_loss_and_leaves(case, n)
+            torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        return op_census.census(fn, case[2].shape[0])
+
+    return run(k + 1) - run(k)
+
+
+def _ray_bytes(tensors, n_rays):
+    """Bytes per ray of the tensors whose first axis is the ray batch."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None and t.dim() and t.shape[0] == n_rays) / n_rays
+
+
+def step_bound(census, case, kind):
+    """{ops, bytes, ms_ops, ms_bytes, bound_ms, bound_by} of one outer step
+    of ``case`` on the compiled route ``kind`` ("graph", "tangent" or
+    "adjoint"), at the case's rays, f64.  Operations: every element per ray
+    that the census's classes but ``copy`` write, each one operation, at
+    the published f64 peak (op_rates.PEAK_FLOPS).  Bytes, each counted once,
+    at the published memory rate (op_rates.HBM_BYTES_PER_S): the carry read
+    and written and the trajectory row written; the tangent graph also the
+    floating carry's tangents read and written and the row's tangent; the
+    adjoint's VJP its stack row read (the carry before the step), the
+    floating carry's cotangent read and written and the row's cotangent
+    read."""
+    cfg, params, v, s, w = case
+    n_rays = v.shape[0]
+    with torch.no_grad():
+        carry = initial_carry(cfg, params, v, s)
+    whole = _ray_bytes(carry, n_rays)
+    floating = _ray_bytes([t for t in carry if t.is_floating_point()], n_rays)
+    row = (v.shape[1] + 1) * v.element_size() if cfg.save_trajectory else 0
+    per_ray = {"graph": 2 * whole + row,
+               "tangent": 2 * (whole + floating) + 2 * row,
+               "adjoint": whole + 2 * floating + row}[kind]
+    ops = n_rays * sum(e for cls, (_, e) in census.by_class().items() if cls != "copy")
+    n_bytes = n_rays * per_ray
+    ms_ops = ops / op_rates.PEAK_FLOPS[torch.float64] * 1e3
+    ms_bytes = n_bytes / op_rates.HBM_BYTES_PER_S * 1e3
+    return {"ops": ops, "bytes": n_bytes, "ms_ops": ms_ops, "ms_bytes": ms_bytes,
+            "bound_ms": max(ms_ops, ms_bytes),
+            "bound_by": "bytes" if ms_bytes > ms_ops else "operations"}
 
 
 def step_window(case, steps, device, tracer=trace_batch):
@@ -196,14 +340,8 @@ def vjp_window(case, steps, device, tracer=trace_batch):
     copies, device_us, wall_us, profiled_wall_us per outer step, busy
     share, quantiles, top kernels, profiled}.  Each backward's forward runs
     before its window, outside it."""
-    cfg, params, v, s, w = case
-
     def backward(n):
-        c = dataclasses.replace(cfg, nstep_max=n)
-        p = tree_map(lambda t: t.detach().clone().requires_grad_(t.is_floating_point()), params)
-        res = tracer(c, p, v, s, w)
-        loss = (res.end_ray_vec[:, 0:3] ** 2 * res.initial_ray_power[:, None]).sum()
-        leaves = [t for t in tree_leaves(p) if t.requires_grad]
+        loss, leaves = _vjp_loss_and_leaves(case, n, tracer)
         return lambda: torch.autograd.grad(loss, leaves, allow_unused=True,
                                            materialize_grads=True)
 
@@ -320,7 +458,9 @@ def _window_line(wnd, census, tracer, case, steps, dev):
 
 def run(device="cuda", n_rays=N_RAYS, steps=STEPS, log=print, vjp_paths=VJP_PATHS):
     """Every section, section 4 on ``vjp_paths``; returns (report lines,
-    {"b1_ops", "census", "windows", "graphs", "b1", "calls", "vjp"})."""
+    {"b1_ops", "census", "windows", "graphs", "b1", "calls", "vjp", "tangents",
+    "tangent_census", "bounds"}); "bounds" is {(route, path): step_bound with
+    device_ms, the device time per step measured, or None}."""
     dev = measure.open_device(device)
     cuda = dev.type == "cuda"
     card = measure.card_line(dev)
@@ -376,6 +516,7 @@ def run(device="cuda", n_rays=N_RAYS, steps=STEPS, log=print, vjp_paths=VJP_PATH
             f"outer step; capture {wnd['capture_ms']:.1f} ms (once per configuration); host "
             f"time of one replay call: " + ", ".join(
                 f"{k} {us:.1f} us" for k, us in wnd["launch_us"].items()))
+    plain = {name: cases[name] for name in GRAPHED}
     del cases
     b1 = {}
     if cuda:
@@ -435,9 +576,71 @@ def run(device="cuda", n_rays=N_RAYS, steps=STEPS, log=print, vjp_paths=VJP_PATH
                           for k, us, c in wnd["top"]))
         if not cuda:
             say(f"{name} graphed: not measured (cpu run; the graphs exist only on a card)")
+    vjp_census_of = {name: vjp_census(cases[name]) for name in vjp_paths}
+    vjp_cases = {name: cases[name] for name in vjp_paths}
     del cases
+
+    say()
+    say(f"# 4b. One outer step with forward-mode tangents (a direction on every floating "
+        f"leaf, v0 and pwr_wt), {n_rays} rays, f64, summaries only ({card})")
+    tcases = tangent_cases(dev, n_rays)
+    tangents, tangent_census_of = {}, {}
+    try:
+        for name, case in tcases.items():
+            along_dir = direction(case[1], case[2], case[4], seed=25)
+            c = tangent_census_of[name] = tangent_census(case, along_dir)
+            cls = ", ".join(f"{k} {n} ({e:.0f})" for k, (n, e) in c.by_class().items() if n)
+            say(f"{name} census with tangents: aten ops per outer step {c.n_ops} (host reads "
+                f"{c.host_reads}); elements per ray {sum(c.elements.values()):.1f}; by class, ops "
+                f"(elements per ray): {cls}")
+            tracer = trace_rays if cuda else trace_batch
+            wnd = tangents[name] = step_window(case, steps, dev, along(tracer, along_dir))
+            if not cuda:
+                say(f"{name} eager with tangents: host {wnd['wall_us'] / 1e3:.3f} ms per outer "
+                    f"step (cpu run: device time not measured; the tangent graph exists only "
+                    f"on a card)")
+                continue
+            say(f"{name} tangent graph (route {route(case[0], False, dev, tangents=True)}): "
+                + _window_line(wnd, c, along(trace_rays, along_dir), case, steps, dev)
+                + f"; capture {(wnd['first_s'] - wnd['again_s']) * 1e3:.1f} ms")
+        rows = ([("graph", name, census[name], plain[name], graphs.get(name))
+                 for name in GRAPHED]
+                + [("adjoint", name, vjp_census_of[name], case, vjp.get((name, "graphed")))
+                   for name, case in vjp_cases.items()]
+                + [("tangent", name, tangent_census_of[name], case,
+                    tangents[name] if cuda else None) for name, case in tcases.items()])
+        bounds = route_bounds(say, rows, n_rays, card)
+    finally:
+        base.EQ_MODELS.pop(JACFWD_MODEL, None)
+    del tcases
     return lines, {"b1_ops": b1_ops, "census": census, "windows": windows, "graphs": graphs,
-                   "b1": b1, "calls": calls, "vjp": vjp}
+                   "b1": b1, "calls": calls, "vjp": vjp, "tangents": tangents,
+                   "tangent_census": tangent_census_of, "bounds": bounds}
+
+
+def route_bounds(say, rows, n_rays, card):
+    """Section 5: ``step_bound`` of each of ``rows``, (route, path, census
+    of one outer step, case, its window or None): the graph route's step
+    on GRAPHED, the adjoint's VJP on the VJP paths, the tangent graph's
+    JVP on TANGENT_PATHS, each beside the device time per step of its
+    window; {(route, path): bound, device_ms the window's or None}."""
+    say()
+    say(f"# 5. The least time of one outer step, {n_rays} rays, f64: the census's elements "
+        f"per ray (all classes but copy) at {op_rates.PEAK_FLOPS[torch.float64] / 1e12:.0f} "
+        f"TFLOP/s against the bytes the step moves at "
+        f"{op_rates.HBM_BYTES_PER_S / 1e12:.2f} TB/s ({card})")
+    bounds = {}
+    for kind, name, c, case, wnd in rows:
+        b = bounds[(kind, name)] = step_bound(c, case, kind)
+        measured = wnd is not None and wnd.get("profiled")
+        b["device_ms"] = wnd["device_us"] / 1e3 if measured else None
+        share = (f"share {b['bound_ms'] / b['device_ms']:.5g} of the {b['device_ms']:.3f} ms "
+                 f"of device time per step measured above" if measured else
+                 "device time not measured")
+        say(f"{kind} {name}: {c.n_ops} aten ops, {b['ops'] / n_rays:.1f} operations and "
+            f"{b['bytes'] / n_rays:.1f} bytes per ray; operations {b['ms_ops']:.5g} ms, bytes "
+            f"{b['ms_bytes']:.5g} ms; bound {b['bound_ms']:.5g} ms by {b['bound_by']}; {share}")
+    return bounds
 
 
 def main(argv=None):
