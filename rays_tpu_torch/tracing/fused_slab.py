@@ -54,6 +54,7 @@ import torch
 from rays_tpu_torch import constants, native
 from rays_tpu_torch.models import base
 from rays_tpu_torch.tracing.trace import RayResults, trace_batch
+from rays_tpu_torch.utils import spans
 
 # launches of the CUDA kernel in this process (not of the plain twin)
 LAUNCHES = 0
@@ -334,9 +335,10 @@ def run_library(lib, cfg, params, v0, status0, pwr_wt, stream=None) -> RayResult
         traj_ptrs = (None, None)
 
     fn = getattr(lib, f"rays_slab_rk4_{_SUFFIX[dt]}")
-    rc = fn(ctypes.addressof(run), cfg.ns, v0.data_ptr(), status0.data_ptr(), B,
-            v_out.data_ptr(), stop.data_ptr(), npoints.data_ptr(),
-            end_res.data_ptr(), max_res.data_ptr(), *traj_ptrs, stream)
+    with spans.span("rays.kernel.launch"):
+        rc = fn(ctypes.addressof(run), cfg.ns, v0.data_ptr(), status0.data_ptr(), B,
+                v_out.data_ptr(), stop.data_ptr(), npoints.data_ptr(),
+                end_res.data_ptr(), max_res.data_ptr(), *traj_ptrs, stream)
     if rc != 0:
         raise RuntimeError(f"slab RK4 kernel launch failed with CUDA error {rc}")
 
@@ -355,17 +357,21 @@ def trace_batch_fused(cfg, params, v0, status0, pwr_wt) -> RayResults:
     """The kernel wrapper.  CUDA tensors: launch the kernel on the current
     stream (asynchronously; synchronize before timing).  CPU tensors: the
     plain twin.  Trajectories come back as (B, nstep_max+1, nv) and
-    (B, nstep_max+1) views of the kernel's (step, slot, ray) buffers."""
+    (B, nstep_max+1) views of the kernel's (step, slot, ray) buffers.
+    The span ``rays.kernel.prepare`` holds the checks, the library lookup,
+    the run constants' host read, the allocations and the launch, whose
+    own span is ``rays.kernel.launch``."""
     global LAUNCHES
     if v0.device.type == "cpu":
         return trace_batch_fused_reference(cfg, params, v0, status0, pwr_wt)
     if v0.device.type != "cuda":
         raise ValueError(f"trace_batch_fused: unsupported device {v0.device}")
-    _check_inputs(cfg, v0, status0)
-    lib, _ = load_libraries()[_variant(cfg)]
-    stream = torch.cuda.current_stream(v0.device).cuda_stream
-    with torch.cuda.device(v0.device):
-        out = run_library(lib, cfg, params, v0, status0, pwr_wt, stream)
+    with spans.span("rays.kernel.prepare"):
+        _check_inputs(cfg, v0, status0)
+        lib, _ = load_libraries()[_variant(cfg)]
+        stream = torch.cuda.current_stream(v0.device).cuda_stream
+        with torch.cuda.device(v0.device):
+            out = run_library(lib, cfg, params, v0, status0, pwr_wt, stream)
     LAUNCHES += 1
     return out
 

@@ -68,7 +68,9 @@ devices or makes an autograd node whose backward reads the host is
 refused with a ValueError naming the model, and nothing is captured.
 
 ``CAPTURES`` counts the configurations captured, ``REPLAYS`` the graph
-replays; plain ints, like ``fused_slab.LAUNCHES``.
+replays; plain ints, like ``fused_slab.LAUNCHES``.  The spans of
+utils/spans.py: ``rays.graph.capture`` around each capture (warm-up and
+audit included), ``rays.graph.replays`` around a run's loop of replays.
 ``trace_batch_static`` runs the same static-buffer loop with its
 functions called directly instead of captured, on any device: the tests
 hold it to ``trace_batch`` bit for bit on the CPU.
@@ -83,6 +85,7 @@ import torch
 from rays_tpu_torch.core.types import has_tangent, needs_grad, tree_leaves, tree_map
 from rays_tpu_torch.models import base
 from rays_tpu_torch.tracing import capture_audit, rk45, trace
+from rays_tpu_torch.utils import spans
 
 CACHE_SIZE = 4      # captured configurations kept per process
 CHUNK = 1           # masked substep passes per host read in the SG loop form
@@ -249,11 +252,12 @@ class StaticLoop:
         RayResults copied out of the static buffers.  The substep counts
         and reads are added to ``rk45.stats`` when it is counting."""
         self.load(params, v0, status0)
-        if launch is None:
-            pieces = self.functions()
-            reads = self.with_own_stats(lambda: self.run(lambda name: pieces[name]()))
-        else:
-            reads = self.run(launch)
+        with spans.span("rays.graph.replays", self.k.device):
+            if launch is None:
+                pieces = self.functions()
+                reads = self.with_own_stats(lambda: self.run(lambda name: pieces[name]()))
+            else:
+                reads = self.run(launch)
         if self.counting and rk45.stats is not None:
             self.stats.host_reads = reads
             rk45.stats.merge(self.stats)
@@ -338,7 +342,8 @@ class Captured:
 def get_or_capture(key, make):
     """The cache entry under ``key``, marked most recently used; on a miss
     ``make()`` builds it, after the least recently used entries are
-    evicted and released (``release()``) down to ``CACHE_SIZE - 1``."""
+    evicted and released (``release()``) down to ``CACHE_SIZE - 1``,
+    inside the span ``rays.graph.capture``."""
     entry = _CACHE.get(key)
     if entry is not None:
         _CACHE.move_to_end(key)
@@ -346,7 +351,8 @@ def get_or_capture(key, make):
     while len(_CACHE) >= CACHE_SIZE:
         _CACHE.popitem(last=False)[1].release()
         torch.cuda.empty_cache()
-    entry = _CACHE[key] = make()
+    with spans.span("rays.graph.capture"):
+        entry = _CACHE[key] = make()
     return entry
 
 

@@ -62,9 +62,13 @@ forward on the same entry came in between, or the entry is a new
 capture), it first replays its own forward from its saved inputs.
 
 ``CAPTURES`` counts the configurations captured, ``REPLAYS`` the step
-and VJP replays.  ``trace_batch_static_adjoint`` runs the same pieces
-called directly, on any device: the tests hold it to eager autograd
-through ``trace_batch`` on the CPU.
+and VJP replays.  The spans of utils/spans.py, each stamped with CUDA
+events: ``rays.adjoint.forward`` around the step replays,
+``rays.adjoint.backward`` around the VJP replays and
+``rays.adjoint.reforward`` around a forward that a backward replays.
+``trace_batch_static_adjoint`` runs the same pieces called directly, on
+any device: the tests hold it to eager autograd through ``trace_batch``
+on the CPU.
 """
 
 from __future__ import annotations
@@ -77,6 +81,7 @@ from torch.autograd.function import once_differentiable
 
 from rays_tpu_torch.core.types import has_tangent, tree_leaves, tree_map
 from rays_tpu_torch.tracing import graphed, rk45, trace
+from rays_tpu_torch.utils import spans
 
 WARMUP = 3          # warm-up iterations (step and VJP) before the capture
 CAPTURES = 0
@@ -199,11 +204,12 @@ class StaticAdjoint(graphed.StaticLoop):
         only with ``cfg.save_trajectory``).  Returns the run's id."""
         self.load_inputs(carry, leaves)
         with torch.no_grad():
-            if launch is None:
-                pieces = self.functions()
-                self.with_own_stats(lambda: self.run(lambda name: pieces[name]()))
-            else:
-                self.run(launch)
+            with spans.span("rays.adjoint.forward", self.k.device):
+                if launch is None:
+                    pieces = self.functions()
+                    self.with_own_stats(lambda: self.run(lambda name: pieces[name]()))
+                else:
+                    self.run(launch)
             if self.counting and rk45.stats is not None:
                 rk45.stats.merge(self.stats)
             self.run_id = next(_RUN_IDS)
@@ -212,11 +218,11 @@ class StaticAdjoint(graphed.StaticLoop):
                 out = (self.traj.clone(), self.resid.clone(), *out)
         return out, self.run_id
 
-    def backward(self, cot_carry, cot_traj, cot_resid, launch=None):
+    def backward(self, cot_carry, cot_traj, cot_resid, launch=None, call=None):
         """The reverse sweep from the incoming cotangents (None: zero):
         (cotangents of the float carry in, gradients of the floating
         Params leaves), fresh tensors.  The stack must hold this run's
-        forward."""
+        forward.  ``call``: the call id of its span (utils/spans.py)."""
         with torch.no_grad():
             pairs = list(zip(self.cot, cot_carry))
             if self.traj is not None:
@@ -230,8 +236,9 @@ class StaticAdjoint(graphed.StaticLoop):
                 acc.zero_()
             self.k.fill_(self.cfg.nstep_max)
         vjp = self.vjp if launch is None else (lambda: launch("vjp"))
-        for _ in range(self.cfg.nstep_max):
-            vjp()
+        with spans.span("rays.adjoint.backward", self.k.device, call):
+            for _ in range(self.cfg.nstep_max):
+                vjp()
         with torch.no_grad():
             grads = [c.clone() for c in self.cot]
             if self.traj is not None:
@@ -246,7 +253,9 @@ class GraphedSteps(torch.autograd.Function):
     residual,] *final carry).  ``entry()`` gives (loop, launch): a
     ``StaticAdjoint`` and ``launch(name)``, which starts its pieces (a
     cache entry's replays), or None, which calls them directly.  The node
-    keeps ``entry`` and asks it again in the backward."""
+    keeps ``entry`` and asks it again in the backward, and keeps the call
+    id of the spans open at its forward for the backward's spans, which
+    run on the autograd engine's thread."""
 
     @staticmethod
     def forward(ctx, entry, *inputs):
@@ -254,6 +263,7 @@ class GraphedSteps(torch.autograd.Function):
         n_carry = len(loop.carry)
         out, ctx.run_id = loop.forward(inputs[:n_carry], inputs[n_carry:], launch)
         ctx.entry, ctx.n_carry, ctx.floats = entry, n_carry, loop.floats
+        ctx.call = spans.current_call()
         ctx.n_traj = 0 if loop.traj is None else 2
         ctx.save_for_backward(*inputs)
         ctx.set_materialize_grads(False)
@@ -268,10 +278,11 @@ class GraphedSteps(torch.autograd.Function):
         inputs = ctx.saved_tensors
         if loop.run_id != ctx.run_id:
             # another run's stack is on the loop: put this one back
-            _, ctx.run_id = loop.forward(inputs[:n_carry], inputs[n_carry:], launch)
+            with spans.span("rays.adjoint.reforward", loop.k.device, ctx.call):
+                _, ctx.run_id = loop.forward(inputs[:n_carry], inputs[n_carry:], launch)
         cot_traj, cot_resid = cots[:2] if n_traj else (None, None)
         cot_carry = [cots[n_traj + i] for i in ctx.floats]
-        g_carry, g_leaves = loop.backward(cot_carry, cot_traj, cot_resid, launch)
+        g_carry, g_leaves = loop.backward(cot_carry, cot_traj, cot_resid, launch, ctx.call)
         grads = [None] * n_carry
         for i, g in zip(ctx.floats, g_carry):
             grads[i] = g

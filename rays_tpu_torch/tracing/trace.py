@@ -38,6 +38,7 @@ from rays_tpu_torch.models import base
 from rays_tpu_torch.tracing import rhs as rhs_mod
 from rays_tpu_torch.tracing import compensated, rk4, rk45
 from rays_tpu_torch.tracing.stop import StopCode
+from rays_tpu_torch.utils import spans
 
 
 class RayResults(NamedTuple):
@@ -153,25 +154,32 @@ def route(cfg, needs_grad, device, tangents=False) -> str:
 
 def trace_rays(cfg, params, v0, status0, pwr_wt) -> RayResults:
     """Top-level tracer dispatch (reference trace_rays,
-    ray_tracing.f90:1): the tracer that ``route`` names."""
+    ray_tracing.f90:1): the tracer that ``route`` names, inside the span
+    ``rays.trace_rays.<route>`` (utils/spans.py)."""
     which = route(cfg, needs_grad(params, v0), v0.device, tangents=has_tangent(params, v0))
-    if which == "plain":
-        return trace_batch(cfg, params, v0, status0, pwr_wt)
-    if which == "graph":
-        from rays_tpu_torch.tracing import graphed
+    with spans.span(_SPANS[which]):
+        if which == "plain":
+            return trace_batch(cfg, params, v0, status0, pwr_wt)
+        if which == "graph":
+            from rays_tpu_torch.tracing import graphed
 
-        return graphed.trace_batch_graphed(cfg, params, v0, status0, pwr_wt)
-    if which == "adjoint":
-        from rays_tpu_torch.tracing import graphed_adjoint
+            return graphed.trace_batch_graphed(cfg, params, v0, status0, pwr_wt)
+        if which == "adjoint":
+            from rays_tpu_torch.tracing import graphed_adjoint
 
-        return graphed_adjoint.trace_batch_graphed_adjoint(cfg, params, v0, status0, pwr_wt)
-    if which == "tangent":
-        from rays_tpu_torch.tracing import graphed_tangent
+            return graphed_adjoint.trace_batch_graphed_adjoint(cfg, params, v0, status0, pwr_wt)
+        if which == "tangent":
+            from rays_tpu_torch.tracing import graphed_tangent
 
-        return graphed_tangent.trace_batch_graphed_tangent(cfg, params, v0, status0, pwr_wt)
-    from rays_tpu_torch.tracing import fused_slab
+            return graphed_tangent.trace_batch_graphed_tangent(cfg, params, v0, status0, pwr_wt)
+        from rays_tpu_torch.tracing import fused_slab
 
-    return fused_slab.trace_batch_fused(cfg, params, v0, status0, pwr_wt)
+        return fused_slab.trace_batch_fused(cfg, params, v0, status0, pwr_wt)
+
+
+_SPANS = {"plain": "rays.trace_rays.plain", "graph": "rays.trace_rays.graph",
+          "adjoint": "rays.trace_rays.adjoint", "tangent": "rays.trace_rays.tangent",
+          "kernel": "rays.trace_rays.kernel"}
 
 
 def step_start(params, k, status):
