@@ -43,10 +43,13 @@ every kernel library, runs in every call):
   through the tangent graph at the same size, held to phase 32's
   closed-form columns, with ms, peak GiB and the census of one outer
   step of both.
-* adjoint, phases 30, 33, 9, 13 and 16, every one through the graphed
-  adjoint (tracing/graphed_adjoint.py: each outer step and its VJP
+* adjoint, phases 36, 30, 33, 9, 13 and 16, every one through the
+  graphed adjoint (tracing/graphed_adjoint.py: each outer step and its VJP
   captured once as CUDA graphs, the backward replaying the VJP last step
-  first).  30: every configuration of that route (RK4 on the slab, damped
+  first).  36: the slab VJP kernel (tracing/slab_vjp.py), the VJP piece of
+  B1's configs without damping, at the benchmark cell's shapes against
+  the generic piece captured alike, with ms per step, launches and its
+  bound.  30: every configuration of that route (RK4 on the slab, damped
   slab, slab with the equilibrium-gradient slots, Solovev, EQDSK and
   damped mirror; SG with a fixed substep budget on the slab and on
   Solovev; the compensated float32 carry) at ADJOINT_RAYS rays x
@@ -205,6 +208,9 @@ ADJOINT_RTOL = 1e-10    # of each leaf's largest eager gradient, f64
 # an H100 80GB HBM3, 700 W)
 ADJOINT_CUT_DEFAULT = {"solovev_sg_fixed_budget": (1024, 10)}
 ADJOINT_RTOL_F32 = 2e-6     # ... f32: 16 ulp (the steps summed in another order)
+SLAB_VJP_RAYS = 32768   # phase 36: the slab VJP at the benchmark cell's shapes
+SLAB_VJP_STEPS = 500
+SLAB_VJP_RTOL = 1e-11   # of each gradient's scale (tests/test_torch_slab_vjp.py)
 TANGENT_RTOL = 1e-10    # phases 31, 32, 34: tangents of their eager scale, f64
 TANGENT_RTOL_F32 = 2e-6     # ... f32
 # phase 31 in the default call: the SG loop form on Solovev at fewer steps
@@ -1433,6 +1439,160 @@ def adjoint_phase(run, full):
           f"{time.perf_counter() - t_phase:.1f} s; graphed_adjoint.CAPTURES "
           f"{graphed_adjoint.CAPTURES}, REPLAYS {graphed_adjoint.REPLAYS} in this process on "
           f"{card}")
+
+
+def slab_vjp_phase(run, rays=None, steps=None):
+    """Phase 36: the hand-written VJP of the slab step (tracing/slab_vjp.py,
+    csrc/slab_rk4_vjp.cu) as the adjoint graph's backward piece, at the
+    benchmark cell's shapes (SLAB_VJP_RAYS rays x SLAB_VJP_STEPS steps of
+    the deck's slab, float64, summaries only): the endpoint loss of the
+    cell and its gradient in every floating Params leaf through trace_rays
+    (the kernel's piece, by the gate) against the same adjoint graph with
+    the generic piece (a StaticAdjoint whose kernel side is taken off,
+    captured and replayed alike), every gradient within SLAB_VJP_RTOL of
+    its scale (the CPU tests' bound); the device ms per step of both sweeps
+    from the spans' CUDA events, the kernel's launches (those captured into
+    the VJP graph, at each replay), its registers and its bound: the
+    operations a live ray step needs (one forward step and its reverse:
+    what the body does, counted by the host build on the counting type,
+    less what it repeats), at the published FP64 peak, beside the body's
+    own count.  Returns the kernels line's row."""
+    import functools
+
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.core.types import tree_leaves, tree_map
+    from rays_tpu_torch.tracing import graphed, graphed_adjoint as ga, slab_vjp, trace
+    from rays_tpu_torch.utils import op_rates, spans
+
+    card, dev = run.card, run.dev
+    rays, steps = rays or SLAB_VJP_RAYS, steps or SLAB_VJP_STEPS
+    t0 = time.perf_counter()
+    lib, log = slab_vjp.load_library(torch.float64, 2)
+    ptxas = re.search(r"slab_rk4_vjp_kernel.*?(\d+) bytes spill stores.*?Used (\d+) registers",
+                      log, re.S)
+    require(ptxas, f"no sm_90a ptxas report in the slab VJP's build log:\n{log}")
+    occ = slab_vjp.occupancy(lib)
+    require(occ["blocks_per_sm"] >= 1, f"the slab VJP cannot launch: {occ}")
+    print(f"phase 36 build: slab_rk4_vjp f64 S=2 loaded in {time.perf_counter() - t0:.1f} s "
+          f"(built in phase 1); ptxas {ptxas[2]} registers, {ptxas[1]} B spilled; granted "
+          f"{occ['blocks_per_sm']} blocks x {occ['threads']} threads = {occ['warps_per_sm']} "
+          f"warps per SM, {occ['local_bytes']} B local")
+
+    cfg, params, v0, st0, pwr0 = examples.setup_example(examples.SLAB_ECH_90GHZ, device=dev)
+    cfg = dataclasses.replace(cfg, nstep_max=steps, save_trajectory=False)
+    v, st, w = examples.replicate_rays(v0, st0, pwr0, rays)
+    require(slab_vjp.takes(cfg, dev) and trace.route(cfg, True, dev) == "adjoint",
+            "the cell's config takes the adjoint graph with the slab VJP")
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(t.is_floating_point()), params)
+    leaves = [t for t in tree_leaves(p) if t.is_floating_point()]
+
+    def derivative_step(tracer):
+        """(gradients, forward ms, backward ms) of the cell's loss: the
+        device ms of the replay loops' spans, over the outer steps."""
+        spans.clear()
+        with spans.recording():
+            res = tracer(cfg, p, v, st, w)
+            loss = (res.end_ray_vec[:, 0:3] ** 2 * w[:, None]).sum()
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+            torch.cuda.synchronize()
+        ms = {r.name: r.device_ms for r in spans.records()}
+        spans.clear()
+        return (grads, res, ms["rays.adjoint.forward"] / steps,
+                ms["rays.adjoint.backward"] / steps)
+
+    # the kernel's piece, as trace_rays takes it (the first call captures)
+    t1 = time.perf_counter()
+    derivative_step(trace.trace_rays)
+    first_s = time.perf_counter() - t1
+    key = ("adjoint", *graphed.cache_key(cfg, p, v))
+    slab = graphed._CACHE[key].loop.slab
+    require(slab is not None and slab.captured == 1,
+            "trace_rays took the generic piece, or its VJP graph holds no one slab VJP launch")
+    l0 = slab_vjp.LAUNCHES
+    runs = [derivative_step(trace.trace_rays) for _ in range(3)]
+    launches = (slab_vjp.LAUNCHES - l0) // len(runs)
+    require(launches == steps, f"{launches} launches of the slab VJP a backward")
+    # the same count as the card's trace sees it: the kernel's device
+    # launches in one more derivative step under torch.profiler
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        derivative_step(trace.trace_rays)
+    traced = sum(e.count for e in prof.key_averages() if "slab_rk4_vjp_kernel" in e.key)
+    require(traced == steps, f"the profiler saw {traced} slab VJP kernels in a backward")
+    grads, res = runs[0][0], runs[0][1]
+
+    # the generic piece, captured alike on the same shapes
+    held = (tree_map(torch.Tensor.detach, p), v, st)
+    loop = ga.StaticAdjoint(cfg, *held)
+    loop.slab = None    # the generic piece in place of the gate's kernel
+    with torch.no_grad():
+        carry = trace.initial_carry(cfg, *held)
+        entry = graphed.Captured(loop, lambda: loop.load_inputs(
+            carry, [t for t in tree_leaves(held[0]) if t.is_floating_point()]), ga.WARMUP)
+    generic = lambda cfg_, p_, v_, st_, w_: ga.trace_adjoint(  # noqa: E731
+        cfg_, p_, v_, st_, w_, lambda: (loop, functools.partial(ga._replay, entry)))
+    gen_runs = [derivative_step(generic) for _ in range(2)]
+    ref = gen_runs[0][0]
+    entry.release()
+    del loop, entry
+
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(grads, ref)):
+        scale = float(r.abs().max()) if r.numel() else 0.0
+        err = float((g - r).abs().max()) if r.numel() else 0.0
+        require(bool(torch.isfinite(g).all()) and err <= SLAB_VJP_RTOL * scale,
+                f"phase 36: gradient {i} differs by {err:.3e} of scale {scale:.3e}")
+        require(scale > 0.0 or not bool(g.any()), f"phase 36: gradient {i} is not zero")
+        worst = max(worst, err / scale if scale else 0.0)
+
+    # the bound: operations of a live ray step on the counting type (the
+    # host build on 48 of the rays, 10 steps), at the published FP64 peak:
+    # what the VJP needs (the body's count less what it repeats), and the
+    # body's own count beside it
+    hcfg = dataclasses.replace(cfg, nstep_max=10)
+    hp = tree_map(lambda t: t.detach().cpu(), params)
+    hv, hst = v[:48].cpu(), st[:48].cpu()
+    hloop = ga.StaticAdjoint(hcfg, hp, hv, hst)
+    hloop.slab = slab_vjp.SlabVJP(slab_vjp.load_host_library(), hloop)
+    hloop.forward(trace.initial_carry(hcfg, hp, hv, hst),
+                  [t for t in tree_leaves(hp) if t.is_floating_point()])
+    ops, again, live = {}, {}, 0
+    for k in range(hcfg.nstep_max - 1, -1, -1):
+        hloop.k.fill_(k)
+        o, a, n = slab_vjp.count_ops(hloop)
+        ops = {key_: ops.get(key_, 0) + o[key_] for key_ in o}
+        again = {key_: again.get(key_, 0) + a[key_] for key_ in a}
+        live += n
+    per_step = {k: c / live for k, c in ops.items()}
+    needed = {k: (c - again[k]) / live for k, c in ops.items()}
+    live_steps = float((res.npoints.double() - 1).sum())
+    ms_per_op = live_steps / op_rates.PEAK_FLOPS[torch.float64] * 1e3
+    bound_ms = sum(needed.values()) * ms_per_op
+    own_bound_ms = sum(per_step.values()) * ms_per_op
+    fwd = sorted(r[2] for r in runs)
+    bwd = sorted(r[3] for r in runs)
+    gen_bwd = sorted(r[3] for r in gen_runs)
+    print(f"phase 36 slab VJP {rays} rays x {steps} steps f64: {len(grads)} gradients within "
+          f"{worst:.3e} of scale of the generic piece's (bound {SLAB_VJP_RTOL}); {launches} "
+          f"launches a backward ({traced} in the profiler's trace); backward {bwd[0]:.5f}-{bwd[-1]:.5f} ms per outer step (generic "
+          f"{gen_bwd[0]:.4f}-{gen_bwd[-1]:.4f}, x{gen_bwd[0] / bwd[-1]:.1f}); forward "
+          f"{fwd[0]:.4f}-{fwd[-1]:.4f} ms per step; first call {first_s:.2f} s with the "
+          f"capture; a live ray step needs {sum(needed.values()):.1f} operations ("
+          + ", ".join(f"{k} {c:.1f}" for k, c in needed.items() if c)
+          + f"), the body does {sum(per_step.values()):.1f}; {live_steps:.0f} live ray steps: "
+          f"bound {bound_ms / steps:.6f} ms per step (the body's count: "
+          f"{own_bound_ms / steps:.6f}), share {bound_ms / steps / bwd[0]:.4f} (of the body's "
+          f"count: {own_bound_ms / steps / bwd[0]:.4f}) on {card}")
+    run.paths.append({"name": "slab_vjp_training_step_f64", "route": "adjoint", "rays": rays,
+                      "steps": steps, "backward_ms_per_step": bwd,
+                      "generic_backward_ms_per_step": gen_bwd, "forward_ms_per_step": fwd,
+                      "worst_grad_rel": worst, "ops_per_live_step": needed,
+                      "body_ops_per_live_step": per_step, "body_bound_ms": own_bound_ms})
+    return {"name": "slab_rk4_vjp", "route": "cuda", "source": "rays_tpu_torch/csrc/slab_rk4_vjp.cu",
+            "replaces": "the graphed adjoint's generic VJP piece (tracing/graphed_adjoint.py)",
+            "launches": launches, "max_abs_err": worst, "ms": bwd[0] * steps,
+            "plain_ms": gen_bwd[0] * steps, "bound_ms": bound_ms, "bound_by": "operations",
+            "body_bound_ms": own_bound_ms,
+            "library_ms": None}
 
 
 def tangent_direction(params, v, w, seed):
@@ -2827,12 +2987,13 @@ def build_kernels():
     """Build (unless built) every kernel library of the checkout: the three
     slab RK4 variants and the op-rate kernels, each source by its own nvcc,
     all started together.  Returns the seconds it took."""
-    from rays_tpu_torch.tracing import fused_slab
+    from rays_tpu_torch.tracing import fused_slab, slab_vjp
     from rays_tpu_torch.utils import op_rates
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(fused_slab.load_libraries), pool.submit(op_rates.load_library)]:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        for f in [pool.submit(fused_slab.load_libraries), pool.submit(op_rates.load_library),
+                  pool.submit(slab_vjp.load_library, torch.float64, 2)]:
             f.result()
     return time.perf_counter() - t0
 
@@ -2878,8 +3039,8 @@ def main(argv=None):
     every = args.group is None
     # every kernel library of the checkout, one nvcc per source, side by side
     run.build_s = build_kernels()
-    print(f"phase 1 build: slab_rk4 (3 variants) and op_rates for sm_90a in {run.build_s:.1f} s "
-          f"(side by side)")
+    print(f"phase 1 build: slab_rk4 (3 variants), slab_rk4_vjp (f64, S=2) and op_rates for "
+          f"sm_90a in {run.build_s:.1f} s (side by side)")
 
     kernels = kernel_phases(run) if "kernel" in groups else None
     if "graph" in groups:
@@ -2889,7 +3050,9 @@ def main(argv=None):
         registered_model_phase(run)
         jacfwd_columns_phase(run, closed_columns)
         del closed_columns
+    vjp_kernel = None
     if "adjoint" in groups:
+        vjp_kernel = slab_vjp_phase(run)
         adjoint_phase(run, not every)
         eviction_phase(run)
         training_phase(run)
@@ -2929,6 +3092,8 @@ def main(argv=None):
             "library_ms": None,
         } for name, (launches, err, (t_kern, t_plain), (bound, bound_by))
             in ((k, kernels[k]) for k in ("slab_rk4", "slab_rk4_damped"))]
+    if vjp_kernel is not None:
+        b1.append(vjp_kernel)
     if b1 or op_kernels:
         print(json.dumps({"kernels": b1 + op_kernels}))
     print(json.dumps({"ok": True, "device": {

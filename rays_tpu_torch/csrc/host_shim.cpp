@@ -14,47 +14,11 @@
 
 #include <string.h>
 
-#include "slab_rk4.cuh"
+#include "counted.h"
 
 #ifndef RAYS_DAMPING
 #define RAYS_DAMPING 0
 #endif
-
-namespace rays {
-
-// A double that counts the floating-point operations done on it:
-// [0] additions and subtractions, [1] multiplications, [2] divisions,
-// [3] square roots, [4] exponentials, [5] powers.  Negation, abs,
-// comparisons and selects are not counted.
-constexpr int N_OP_KINDS = 6;
-static int64_t g_ops[N_OP_KINDS];
-
-struct Counted {
-  double v;
-  Counted() : v(0) {}
-  explicit Counted(double a) : v(a) {}
-  Counted operator-() const { return Counted(-v); }
-  Counted& operator+=(Counted b) { ++g_ops[0]; v += b.v; return *this; }
-  Counted& operator*=(Counted b) { ++g_ops[1]; v *= b.v; return *this; }
-};
-inline Counted operator+(Counted a, Counted b) { ++g_ops[0]; return Counted(a.v + b.v); }
-inline Counted operator-(Counted a, Counted b) { ++g_ops[0]; return Counted(a.v - b.v); }
-inline Counted operator*(Counted a, Counted b) { ++g_ops[1]; return Counted(a.v * b.v); }
-inline Counted operator/(Counted a, Counted b) { ++g_ops[2]; return Counted(a.v / b.v); }
-inline bool operator<(Counted a, Counted b) { return a.v < b.v; }
-inline bool operator>(Counted a, Counted b) { return a.v > b.v; }
-inline bool operator<=(Counted a, Counted b) { return a.v <= b.v; }
-inline bool operator>=(Counted a, Counted b) { return a.v >= b.v; }
-inline bool operator==(Counted a, Counted b) { return a.v == b.v; }
-inline bool operator!=(Counted a, Counted b) { return a.v != b.v; }
-inline Counted r_sqrt(Counted a) { ++g_ops[3]; return Counted(sqrt(a.v)); }
-inline Counted r_exp(Counted a) { ++g_ops[4]; return Counted(exp(a.v)); }
-inline Counted r_pow(Counted a, Counted b) { ++g_ops[5]; return Counted(pow(a.v, b.v)); }
-inline Counted r_abs(Counted a) { return Counted(fabs(a.v)); }
-template <> inline Counted inv_odd<Counted>(int j) { return Counted(kInvOddHost64[j]); }
-static_assert(sizeof(SlabRun<Counted>) == sizeof(SlabRun<double>), "Counted is one double");
-
-}  // namespace rays
 
 namespace {
 
@@ -142,14 +106,14 @@ int rays_slab_count_ops(const rays::SlabRun<double>* run, int nspecies, const do
   rays::derive_run(derived);
   rays::SlabRun<Counted> counted;
   memcpy(static_cast<void*>(&counted), &derived, sizeof counted);
-  for (int k = 0; k < rays::N_OP_KINDS; ++k) rays::g_ops[k] = 0;
+  rays::reset_ops();
   const int rc = launch<Counted>(
       counted, nspecies,
       reinterpret_cast<const Counted*>(v0), status0, B, reinterpret_cast<Counted*>(v_out),
       stop_out, npoints_out, reinterpret_cast<Counted*>(end_res_out),
       reinterpret_cast<Counted*>(max_res_out), reinterpret_cast<Counted*>(traj),
       reinterpret_cast<Counted*>(traj_res));
-  for (int k = 0; k < rays::N_OP_KINDS; ++k) ops[k] = rays::g_ops[k];
+  rays::read_ops(ops);
   return rc;
 }
 

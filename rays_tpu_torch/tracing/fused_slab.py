@@ -281,7 +281,7 @@ def load_host_libraries():
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the host build of the kernel body needs it")
-    files = [native.CSRC / "host_shim.cpp", native.CSRC / "slab_rk4.cuh"]
+    files = [native.CSRC / f for f in ("host_shim.cpp", "counted.h", "slab_rk4.cuh")]
 
     def spec(variant):
         return (f"slab_rk4_host_d{variant}", files,

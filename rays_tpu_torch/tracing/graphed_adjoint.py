@@ -46,6 +46,14 @@ static buffers and adds its own):
   gradient is added into its accumulator.  Recomputing inside the piece
   keeps the backward of each operation on the stream of its forward,
   which is the capture stream.
+* On the card, the slab kernel's configurations without damping
+  (``slab_vjp.takes``) take another ``"vjp"`` piece: one launch of the
+  hand-written VJP of the slab step (tracing/slab_vjp.py), which reads the
+  same stack and the Params values packed on the device at each run's
+  load, writes the carry cotangent in place and adds the Params
+  cotangents into a per-ray accumulator that the backward sums into the
+  leaves' accumulators once, after the sweep.  The generic piece is its
+  plain version; every other configuration, and the CPU, keep it.
 * ``cfg.remat_steps`` changes only the plain route's memory: the VJP
   always recomputes its step.
 
@@ -62,9 +70,10 @@ forward on the same entry came in between, or the entry is a new
 capture), it first replays its own forward from its saved inputs.
 
 ``CAPTURES`` counts the configurations captured, ``REPLAYS`` the step
-and VJP replays.  The spans of utils/spans.py, each stamped with CUDA
-events: ``rays.adjoint.forward`` around the step replays,
-``rays.adjoint.backward`` around the VJP replays and
+and VJP replays; a replay of a VJP graph adds to ``slab_vjp.LAUNCHES``
+the slab VJP's launches captured into it.  The spans of utils/spans.py,
+each stamped with CUDA events: ``rays.adjoint.forward`` around the step
+replays, ``rays.adjoint.backward`` around the VJP replays and
 ``rays.adjoint.reforward`` around a forward that a backward replays.
 ``trace_batch_static_adjoint`` runs the same pieces called directly, on
 any device: the tests hold it to eager autograd through ``trace_batch``
@@ -80,7 +89,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from rays_tpu_torch.core.types import has_tangent, tree_leaves, tree_map
-from rays_tpu_torch.tracing import graphed, rk45, trace
+from rays_tpu_torch.tracing import graphed, rk45, slab_vjp, trace
 from rays_tpu_torch.utils import spans
 
 WARMUP = 3          # warm-up iterations (step and VJP) before the capture
@@ -116,7 +125,14 @@ def check_capturable(cfg):
 class StaticAdjoint(graphed.StaticLoop):
     """``trace_batch``'s loop and its reverse sweep on static buffers, for
     one configuration and one set of input shapes: the pieces ``"step"``
-    and ``"vjp"``.  Each reads and writes the static buffers only."""
+    and ``"vjp"``.  Each reads and writes the static buffers only.
+
+    The ``"vjp"`` piece is one of two, fixed here from the config and the
+    device (``slab_vjp.takes``): on CUDA, the slab kernel's configurations
+    without damping take the hand-written VJP kernel
+    (tracing/slab_vjp.py); every other configuration, and the CPU, the
+    generic recompute under autograd, which is the kernel's plain version.
+    ``slab`` holds the kernel's side (``slab_vjp.SlabVJP``) or None."""
 
     def __init__(self, cfg, params, v0, status0):
         check_capturable(cfg)
@@ -133,9 +149,11 @@ class StaticAdjoint(graphed.StaticLoop):
                        if t.is_floating_point()]
         self.acc = [torch.zeros_like(t) for t in self.leaves]
         self.run_id = 0     # no forward yet
+        self.slab = (slab_vjp.SlabVJP(slab_vjp.load_library(v0.dtype, cfg.ns)[0], self)
+                     if slab_vjp.takes(cfg, v0.device) else None)
 
     def functions(self):
-        return {"step": self.step, "vjp": self.vjp}
+        return {"step": self.step, "vjp": self.vjp if self.slab is None else self.vjp_slab}
 
     def step(self):
         """The carry into the stack at k, then one whole outer step."""
@@ -180,6 +198,13 @@ class StaticAdjoint(graphed.StaticLoop):
         finally:
             rk45.stats = held
 
+    def vjp_slab(self):
+        """The VJP of outer step k - 1 as one launch of the slab VJP kernel:
+        the carry cotangent in place, the Params cotangents into its
+        per-ray accumulator (summed into ``acc`` after the sweep)."""
+        self.k.sub_(1)
+        self.slab.launch()
+
     # --- a run ------------------------------------------------------------
 
     def load_inputs(self, carry, leaves):
@@ -190,6 +215,8 @@ class StaticAdjoint(graphed.StaticLoop):
                 buf.copy_(t)
             for buf, t in zip(self.leaves, leaves):
                 buf.copy_(t)
+            if self.slab is not None:
+                self.slab.pack()
             self.k.zero_()
             if self.traj is not None:
                 self.traj[:, 0].copy_(carry[0])
@@ -234,12 +261,16 @@ class StaticAdjoint(graphed.StaticLoop):
                     buf.copy_(c)
             for acc in self.acc:
                 acc.zero_()
+            if self.slab is not None:
+                self.slab.acc.zero_()
             self.k.fill_(self.cfg.nstep_max)
-        vjp = self.vjp if launch is None else (lambda: launch("vjp"))
+        vjp = self.functions()["vjp"] if launch is None else (lambda: launch("vjp"))
         with spans.span("rays.adjoint.backward", self.k.device, call):
             for _ in range(self.cfg.nstep_max):
                 vjp()
         with torch.no_grad():
+            if self.slab is not None:
+                self.slab.reduce(self.acc)
             grads = [c.clone() for c in self.cot]
             if self.traj is not None:
                 # the trajectory's first row is v0, which enters as carry v
@@ -359,3 +390,6 @@ def _replay(entry, name):
     global REPLAYS
     entry.launch(name)
     REPLAYS += 1
+    if name == "vjp" and entry.loop.slab is not None:
+        # the launches that the slab VJP made into the captured graph
+        slab_vjp.LAUNCHES += entry.loop.slab.captured
