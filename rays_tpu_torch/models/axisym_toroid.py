@@ -43,6 +43,7 @@ import torch
 from rays_tpu_torch.models import profiles, solovev as solovev_mod
 from rays_tpu_torch.ops import splines
 from rays_tpu_torch.tracing.stop import StopCode
+from rays_tpu_torch.utils import spans
 
 _AXIS_GUARD = 1e-12
 
@@ -493,10 +494,17 @@ def build_eqdsk_mag_params(path) -> tuple:
     total), and the inverse psiN(rho) on the same uniform [0, 1] grid by 40
     bisection passes on the rho spline.  A file without a usable Q profile
     (the Solovev generator writes Q = 0, as reference solovev_2_eqdsk.f90:90)
-    gets no rho machinery: ``rho_and_grad`` and ``Ptotal_rho`` refuse."""
+    gets no rho machinery: ``rho_and_grad`` and ``Ptotal_rho`` refuse.
+
+    The read and every build run inside the span ``rays.eq.build``
+    (utils/spans.py)."""
     from rays_tpu_torch.utils import eqdsk_io
 
-    g = eqdsk_io.read_geqdsk(path)
+    with spans.span("rays.eq.build"):
+        return _eqdsk_mag_params(eqdsk_io.read_geqdsk(path))
+
+
+def _eqdsk_mag_params(g):
     rg, zg = g.r_grid, g.z_grid
     psi = g.psi - g.psiaxis  # shift psi to 0 on axis (reference :176-179)
     psib = g.psibound - g.psiaxis

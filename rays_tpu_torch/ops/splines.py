@@ -15,6 +15,12 @@ a point fetches one row of K*16 coefficients with a single ``index_select``
 of the ``(nxm*nym, K*16)`` view of the table, and values, first and second
 derivatives all come from that row.
 
+``EVALS`` counts the cell-form evaluations that Python runs (one row
+fetch for a batch of points): eager ones, and those a CUDA graph captures
+(tracing/graphed.py stores the count each piece's capture made on its
+cache entry).  ``REPLAYED_EVALS`` counts those that graph replays make:
+each replay adds its piece's stored count, since a replay runs no Python.
+
 Every evaluator takes points of any shape and returns that shape (with a
 trailing K axis for the cell form).  In float32 ``(x - x0) / dx`` can land
 in the cell next to the one float64 finds for a point on a knot; the spline
@@ -27,6 +33,9 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+
+EVALS = 0            # cell-form evaluations run by Python (eager or captured)
+REPLAYED_EVALS = 0   # cell-form evaluations run by graph replays
 
 
 class Spline1D(NamedTuple):
@@ -276,6 +285,8 @@ def _cell_rows(cs: CellSpline2D, x, y):
     """Locate the cell of each point and fetch its K*16 coefficients with
     one row gather of the (nxm*nym, K*16) view of the table.  Returns
     (rows (N, K, 16), u (N,), v (N,)) for the N points of x."""
+    global EVALS
+    EVALS += 1
     nxm, nym, K = cs.cells.shape[0], cs.cells.shape[1], cs.cells.shape[2]
     i, u = _cell(cs.x0, cs.dx, nxm + 1, x.reshape(-1))
     j, v = _cell(cs.y0, cs.dy, nym + 1, y.reshape(-1))

@@ -4,6 +4,14 @@ axisym_toroid_ray_init_R_Z_nphi_ntheta_m.f90): the flux-surface frame and
 inward-psi dispersion solve of the Solovev initializer, with the launch
 points given as (R, Z) lists against the generic axisym_toroid psi.
 
+The frame is oriented along grad psiN, which rises outward whatever sign
+the equilibrium gives psi: grad psi times the sign of psibound - psiaxis,
+an exact negation where psi falls outward (the G-EQDSK that the Solovev
+converter writes, and EFIT files of the other current direction), and
+grad psi itself, bit for bit, where it rises.  The JAX package and the
+reference take -grad(psi) as inward and so launch outward on such a file
+(ROADMAP C13).
+
 The reference supports a single R_launch0/Z_launch0 despite its
 n_R_launch/n_Z_launch counts ("For now there is only one launch position",
 ibid.:9); as in the JAX package the full grid is launched when the counts
@@ -62,7 +70,10 @@ def axisym_toroid_ray_init(cfg, params, ri: AxisymToroidInit):
     rvec, nth, nph = c[:, 0:3], c[:, 3:4], c[:, 4:5]
     err = base.eq_err(cfg, params, rvec)
     alpha, gamma, bunit, _ = dispersion.alpha_gamma(cfg, params, rvec, params.rf.omgrf)
-    _, gradpsi, _, _ = at_mod.psi_and_grad(cfg.eq_static, params.eq, rvec)
+    _, gradpsi, _, gradpsin = at_mod.psi_and_grad(cfg.eq_static, params.eq, rvec)
+    # grad psi along grad psiN: the sign of their dot product is that of
+    # psibound - psiaxis
+    gradpsi = torch.where(((gradpsi * gradpsin).sum(-1) < 0.0)[:, None], -gradpsi, gradpsi)
 
     zero = torch.zeros_like(gradpsi[:, 0])
     psi_unit = _unit(gradpsi)
@@ -75,7 +86,7 @@ def axisym_toroid_ray_init(cfg, params, ri: AxisymToroidInit):
     n2 = (trans_unit * rindex_vec).sum(-1)
     npsi, propagating = dispersion.solve_n1_vs_n2_n3(
         alpha, gamma, cfg.wave_mode, cfg.k0_sign, n2, n3)
-    # the psi-component points inward: the -grad(psi) direction
+    # the psi-component points inward: the -grad(psiN) direction
     rindex0 = rindex_vec - npsi[:, None] * psi_unit
     valid = (err == 0) & propagating
 

@@ -68,7 +68,10 @@ devices or makes an autograd node whose backward reads the host is
 refused with a ValueError naming the model, and nothing is captured.
 
 ``CAPTURES`` counts the configurations captured, ``REPLAYS`` the graph
-replays; plain ints, like ``fused_slab.LAUNCHES``.  The spans of
+replays; plain ints, like ``fused_slab.LAUNCHES``.  A cache entry keeps
+the spline evaluations that each piece's capture ran
+(``ops/splines.EVALS``), and each replay adds them to
+``splines.REPLAYED_EVALS``.  The spans of
 utils/spans.py: ``rays.graph.capture`` around each capture (warm-up and
 audit included), ``rays.graph.replays`` around a run's loop of replays.
 ``trace_batch_static`` runs the same static-buffer loop with its
@@ -84,6 +87,7 @@ import torch
 
 from rays_tpu_torch.core.types import has_tangent, needs_grad, tree_leaves, tree_map
 from rays_tpu_torch.models import base
+from rays_tpu_torch.ops import splines
 from rays_tpu_torch.tracing import capture_audit, rk45, trace
 from rays_tpu_torch.utils import spans
 
@@ -319,16 +323,20 @@ class Captured:
         torch.cuda.current_stream(self.device).wait_stream(side)
         load()
         self.pool = torch.cuda.graph_pool_handle()
-        self.graphs = {}
+        self.graphs, self.spline_evals = {}, {}
         for name, fn in pieces.items():
             g = torch.cuda.CUDAGraph()
+            before = splines.EVALS
             with torch.cuda.graph(g, pool=self.pool, stream=side):
                 loop.with_own_stats(fn)
             self.graphs[name] = g
+            self.spline_evals[name] = splines.EVALS - before
 
     def launch(self, name):
         with torch.cuda.device(self.device):
             self.graphs[name].replay()
+        # a replay runs no Python: the evaluations its capture ran
+        splines.REPLAYED_EVALS += self.spline_evals[name]
 
     def release(self):
         """Reset the graphs and drop the loop: the pool and the static

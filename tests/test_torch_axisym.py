@@ -32,6 +32,7 @@ import torch
 import _oracle as oracle
 import _torch_parity as tp
 import rays_tpu  # noqa: F401  (x64 on)
+from rays_tpu import examples as jex
 from rays_tpu import run as jrun
 from rays_tpu.models import axisym_toroid as jat
 from rays_tpu.models import base as jbase
@@ -375,18 +376,58 @@ FAN = {"n_rindex_theta=2": "n_rindex_theta=3", "n_R_launch=1, R_launch0=1.5":
        "n_R_launch=3, R_launch0=1.4, dR_launch=0.1"}
 
 
+# the analytic deck's Solovev init at the fan's launch points (R = 1.2 + r
+# at theta = 0); it also launches the candidates at R = 1.6, in vacuum
+ANALYTIC_FAN = {"n_r_launch=1, r_launch0=0.3, dr_launch=0.0":
+                "n_r_launch=3, r_launch0=0.2, dr_launch=0.1",
+                "n_theta_launch=4": "n_theta_launch=1", "n_rindex_theta=2": "n_rindex_theta=3"}
+# the file backends' launch against the analytic field's, of each ray's
+# scale: the spline's accuracy on the 65 x 65 file (1.2e-8 found), the
+# bilinear backend's (its central differences; 2.7e-2 found, and
+# test_spline_field_matches_closed_form_solovev holds its B within 0.05)
+ANALYTIC_INIT_TOL = {"eqdsk_magnetics_spline_interp": 1e-6, "eqdsk_magnetics_lin_interp": 5e-2}
+
+
+def _analytic_init():
+    """(rvec0, rindex0) of the JAX package's analytic Solovev init
+    (``rays_tpu.rayinit.solovev``) at the fan's points inside the plasma."""
+    text = jex.SOLOVEV_ECH_90GHZ
+    for old, new in ANALYTIC_FAN.items():
+        assert old in text, old
+        text = text.replace(old, new)
+    (jcfg, jparams), _ = tp.both_from_text(text)
+    assert jcfg.ray_init_model == "solovev_ray_init_nphi_ntheta"
+    rvec, rindex, _ = (np.asarray(a) for a in jrun.init_rays(jcfg, jparams))
+    inside = rvec[:, 0] < 1.55
+    return rvec[inside], rindex[inside]
+
+
 @pytest.mark.parametrize("mag", MAGS)
 def test_ray_init_matches_jax(eqdsk_file, mag):
     """A 3 x 3 fan: the candidates at R = 1.6 lie outside the plasma and
     some others do not propagate; they are dropped, and count and order of
-    the survivors are exact."""
+    the survivors are exact.  The file's psi falls outward (the converter's
+    sign rule), and the port orients the launch along grad psiN, where the
+    JAX package takes -grad(psi) as inward and launches outward (ROADMAP
+    C13): on the file backends the launch is held to the JAX package's
+    analytic Solovev init at the same points, within the backend's
+    accuracy; on the analytic field, where psi rises, to the JAX package's
+    R_Z init."""
     (jcfg, jparams), (pcfg, pparams) = _both(_text(mag, eqdsk_file, **FAN))
-    jr, jn, jw = jrun.init_rays(jcfg, jparams)
     pr, pn, pw = trun.init_rays(pcfg, pparams)
-    assert pr.shape == jr.shape and 3 <= pr.shape[0] <= 6 and pr.dtype == torch.float64
-    np.testing.assert_array_equal(pr.numpy(), np.asarray(jr))
-    tp.assert_rows_close(pn, jn, max(INIT_TOL, FIELD_TOL[mag] / 100), "rindex")
-    np.testing.assert_allclose(pw.numpy(), np.asarray(jw), rtol=INIT_TOL)
+    assert 3 <= pr.shape[0] <= 6 and pr.dtype == torch.float64
+    if mag == "solovev_magnetics":
+        jr, jn, jw = jrun.init_rays(jcfg, jparams)
+        assert pr.shape == jr.shape
+        np.testing.assert_array_equal(pr.numpy(), np.asarray(jr))
+        tp.assert_rows_close(pn, jn, max(INIT_TOL, FIELD_TOL[mag] / 100), "rindex")
+        np.testing.assert_allclose(pw.numpy(), np.asarray(jw), rtol=INIT_TOL)
+    else:
+        ar, an = _analytic_init()
+        assert pr.shape == ar.shape
+        np.testing.assert_allclose(pr.numpy(), ar, rtol=1e-15, atol=0)
+        tp.assert_rows_close(pn, an, ANALYTIC_INIT_TOL[mag], "rindex")
+        np.testing.assert_allclose(pw.numpy(), 1.0 / pr.shape[0], rtol=INIT_TOL)
     # launched in the y = 0 plane
     assert float(pr[:, 1].abs().max()) == 0.0
     with pytest.raises(ValueError, match="nray_max"):
@@ -396,6 +437,47 @@ def test_ray_init_matches_jax(eqdsk_file, mag):
         trun.init_rays(dataclasses.replace(pcfg, rayinit_static=nowhere), pparams)
 
 
+def _unoriented(monkeypatch):
+    """Make the port's R_Z init take grad psi for grad psiN, which turns
+    its orientation off: the init as it was before the orientation."""
+    from rays_tpu_torch.rayinit import axisym_toroid as init_mod
+
+    real = init_mod.at_mod.psi_and_grad
+
+    def psi_and_grad(static, p, rvec):
+        psi, gradpsi, psin, _ = real(static, p, rvec)
+        return psi, gradpsi, psin, gradpsi
+
+    monkeypatch.setattr(init_mod.at_mod, "psi_and_grad", psi_and_grad)
+
+
+@pytest.mark.parametrize("mag", ["eqdsk_magnetics_spline_interp", "eqdsk_magnetics_lin_interp"])
+def test_ray_init_psi_rising_file(eqdsk_file, tmp_path, monkeypatch, mag):
+    """On the file with psi, PSIAXIS and PSIBOUND negated (psi rises
+    outward, the poloidal field reversed) the orientation leaves the launch
+    bit for bit as the init without it, which is the JAX package's R_Z init
+    (held to it as on the analytic field); on the converter's file, where
+    psi falls outward, the init without it is the JAX package's (outward)
+    launch and the oriented one is not."""
+    g = tio.read_geqdsk(eqdsk_file)
+    rising = str(tmp_path / "rising.geqdsk")
+    tio.write_geqdsk(rising, dataclasses.replace(g, psi=-g.psi, psiaxis=-g.psiaxis,
+                                                  psibound=-g.psibound))
+    for path, psi_rises in ((rising, True), (eqdsk_file, False)):
+        (jcfg, jparams), (pcfg, pparams) = _both(_text(mag, path, **FAN))
+        jr, jn, _ = jrun.init_rays(jcfg, jparams)
+        pr, pn, _ = trun.init_rays(pcfg, pparams)
+        with monkeypatch.context() as m:
+            _unoriented(m)
+            ur, un, _ = trun.init_rays(pcfg, pparams)
+        np.testing.assert_array_equal(ur.numpy(), np.asarray(jr))
+        tp.assert_rows_close(un, jn, max(INIT_TOL, FIELD_TOL[mag] / 100), "rindex")
+        if psi_rises:
+            assert torch.equal(pr, ur) and torch.equal(pn, un)
+        else:   # the outward launch even propagates another set of candidates
+            assert pn.shape != un.shape or not torch.equal(pn, un)
+
+
 def _trace_both(text, **cfg_changes):
     (jcfg, jparams), (pcfg, pparams) = _both(text)
     jcfg = dataclasses.replace(jcfg, **cfg_changes)
@@ -403,8 +485,9 @@ def _trace_both(text, **cfg_changes):
     v0, st, pwr = tp.jax_launch(jcfg, jparams)
     ref = jax.jit(lambda p, v, s, w: jtrace.trace_batch(jcfg, p, v, s, w))(
         jparams, v0, st, pwr)
-    _, _, tv0, tst, tpw = trun.setup_from(pcfg, pparams, "cpu", torch.float64)
-    tp.assert_rows_close(tv0, v0, 1e-13, "v0")
+    # the JAX package's launch carried across: on a file whose psi falls
+    # outward the port's own launch points the other way (ROADMAP C13)
+    tv0, tst, tpw = (torch.from_numpy(np.array(a)) for a in (v0, st, pwr))
     assert ttrace.route(pcfg, False, "cuda") == "graph"
     assert ttrace.route(pcfg, False, "cpu") == "plain"
     assert not fused_slab.supported(pcfg)

@@ -14,6 +14,9 @@ CPU, with stand-in entries in place of captured graphs.
   the captured graphs.
 * The key names the equilibrium model object: a module registered anew
   under an old name gets a key of its own.
+* An entry keeps the cell-spline evaluations that each piece's capture
+  ran, and a replay adds them to ``ops/splines.REPLAYED_EVALS`` without
+  running one.
 """
 
 import collections
@@ -215,3 +218,40 @@ def test_the_adjoint_captures_without_autograd_history(monkeypatch, case):
     entry = ga.capture(cfg, _with_grad(params), v0, st)
     assert seen == [False] and ga.CAPTURES == before + 1
     assert not any(t.requires_grad for t in (*entry.loop.carry, *entry.loop.stack))
+
+
+def test_a_replay_adds_the_spline_evaluations_its_capture_ran(tmp_path):
+    """``ops/splines.EVALS`` counts the cell-spline evaluations that Python
+    runs.  The EQDSK adjoint's pieces, called once as a capture calls them,
+    run 4 each: the step's three RK4 stages and its new point, and the
+    VJP's recompute of that step.  An entry whose graphs are stand-ins
+    (``graphed.Captured`` with those counts) adds them to
+    ``REPLAYED_EVALS`` at each replay and runs no evaluation."""
+    from rays_tpu_torch import run as trun
+    from rays_tpu_torch.ops import splines
+
+    cfg, params, v0, st, _ = trun.setup(tex.write_eqdsk_toroid_example(tmp_path, n=17),
+                                        device="cpu")
+    cfg = dataclasses.replace(cfg, nstep_max=3, save_trajectory=False)
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(t.is_floating_point()),
+                      params)
+    loop = ga.StaticAdjoint(cfg, params, v0, st)
+    with torch.no_grad():
+        carry = ttrace.initial_carry(cfg, params, v0, st)
+        loop.load_inputs(carry, [t for t in tree_leaves(params) if t.is_floating_point()])
+        counts = {}
+        for name, fn in loop.functions().items():
+            before = splines.EVALS
+            fn()
+            counts[name] = splines.EVALS - before
+    assert counts == {"step": 4, "vjp": 4}
+
+    entry = graphed.Captured.__new__(graphed.Captured)
+    entry.device = -1                       # no CUDA device to switch to
+    entry.graphs = {name: types.SimpleNamespace(replay=lambda: None) for name in counts}
+    entry.spline_evals = counts
+    evals, replayed = splines.EVALS, splines.REPLAYED_EVALS
+    for name in ("step", "step", "step", "vjp", "vjp", "vjp"):
+        entry.launch(name)
+    assert splines.EVALS == evals
+    assert splines.REPLAYED_EVALS == replayed + 3 * (4 + 4)

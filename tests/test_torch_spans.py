@@ -3,7 +3,8 @@
 * Off (no profiler, no ``recording()``) a span is the shared no-op and a
   ``trace_rays`` call leaves the record empty.
 * Under ``recording()`` the dispatch, the graph route's loop, the
-  adjoint's forward and backward and a capture give their spans: nested
+  adjoint's forward and backward, a capture and the build of a G-EQDSK's
+  splines give their spans: nested
   under the span open on the thread, one call id per call (the backward
   takes its forward's), self times never negative; a reused loop's two
   backwards each replay their forward under ``rays.adjoint.reforward``.
@@ -191,6 +192,24 @@ def test_capture_span_on_a_miss_only(monkeypatch):
         first = graphed.get_or_capture(("test",), Entry)
         assert graphed.get_or_capture(("test",), Entry) is first
     assert [r.name for r in spans.records()] == ["rays.graph.capture"]
+
+
+def test_eq_build_span(tmp_path):
+    """The G-EQDSK read and the spline and cell-table builds run inside
+    ``rays.eq.build``, one span a build; the tables are the same with the
+    record on and off."""
+    from rays_tpu_torch.models import axisym_toroid as tat
+
+    tex.write_eqdsk_toroid_example(tmp_path, n=17)
+    path = tmp_path / "solovev.geqdsk"
+    off, _ = tat.build_eqdsk_mag_params(path)
+    assert spans.records() == []
+    with spans.recording(), spans.span("rays.test.setup"):
+        on, _ = tat.build_eqdsk_mag_params(path)
+    outer, rec = spans.records()
+    assert rec.name == "rays.eq.build" and rec.parent == outer.id and rec.device_ms is None
+    assert outer.start_ns <= rec.start_ns < rec.end_ns <= outer.end_ns
+    assert torch.equal(on.psi_cells.cells, off.psi_cells.cells)
 
 
 def test_call_ids_and_parents():
