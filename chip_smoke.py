@@ -43,20 +43,22 @@ every kernel library, runs in every call):
   through the tangent graph at the same size, held to phase 32's
   closed-form columns, with ms, peak GiB and the census of one outer
   step of both.
-* adjoint, phases 36, 30, 33, 9, 13 and 16, every one through the
+* adjoint, phases 36, 37, 30, 33, 9, 13 and 16, every one through the
   graphed adjoint (tracing/graphed_adjoint.py: each outer step and its VJP
   captured once as CUDA graphs, the backward replaying the VJP last step
   first).  36: the slab VJP kernel (tracing/slab_vjp.py), the VJP piece of
   B1's configs without damping, at the benchmark cell's shapes against
   the generic piece captured alike, with ms per step, launches and its
-  bound.  30: every configuration of that route (RK4 on the slab, damped
-  slab, slab with the equilibrium-gradient slots, Solovev, EQDSK and
-  damped mirror; SG with a fixed substep budget on the slab and on
-  Solovev; the compensated float32 carry) at ADJOINT_RAYS rays x
-  ADJOINT_STEPS steps with trajectories, the loss and every gradient
-  held to eager autograd through trace_batch (ADJOINT_RTOL of each
-  leaf's scale), the forward bit for bit; the default call cuts Solovev
-  SG to ADJOINT_CUT_DEFAULT and says so.  33: backwards whose cache
+  bound.  37: the slab step kernel (tracing/slab_vjp.py), their step
+  piece, alike against the generic step piece and against B1.  30: every
+  configuration of that route (RK4 on the slab, damped slab, slab with
+  the equilibrium-gradient slots, Solovev, EQDSK and damped mirror; SG
+  with a fixed substep budget on the slab and on Solovev; the
+  compensated float32 carry) at ADJOINT_RAYS rays x ADJOINT_STEPS steps
+  with trajectories, the loss and every gradient held to eager autograd
+  through trace_batch (ADJOINT_RTOL of each leaf's scale), the forward
+  bit for bit (the slab kernels' config at rounding level); the default
+  call cuts Solovev SG to ADJOINT_CUT_DEFAULT and says so.  33: backwards whose cache
   entry was evicted before they ran
   (one loss over five step counts; a forward, four other captures, then
   the backward), each entry captured again by its backward, the
@@ -159,6 +161,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -211,6 +214,7 @@ ADJOINT_RTOL_F32 = 2e-6     # ... f32: 16 ulp (the steps summed in another order
 SLAB_VJP_RAYS = 32768   # phase 36: the slab VJP at the benchmark cell's shapes
 SLAB_VJP_STEPS = 500
 SLAB_VJP_RTOL = 1e-11   # of each gradient's scale (tests/test_torch_slab_vjp.py)
+SLAB_RTOL = 1e-9        # B1 against its plain twin, of scale (tests/test_torch_kernel_host.py)
 TANGENT_RTOL = 1e-10    # phases 31, 32, 34: tangents of their eager scale, f64
 TANGENT_RTOL_F32 = 2e-6     # ... f32
 # phase 31 in the default call: the SG loop form on Solovev at fewer steps
@@ -1357,10 +1361,13 @@ def adjoint_phase(run, full):
     trace_batch; the forward bit for bit, the loss bit for bit, every
     gradient (floating Params leaves, v0, pwr_wt) within ADJOINT_RTOL
     (ADJOINT_RTOL_F32 in float32) of the leaf's largest eager gradient.
+    The slab kernels' configs (slab_vjp.takes) run B1's arithmetic forward:
+    their counts and stops equal, the rest within SLAB_RTOL, the loss within
+    LOSS_RTOL and the gradients within ADJOINT_RTOL as every other config's.
     ``full``: every config at that size, else those of
     ADJOINT_CUT_DEFAULT at their cut rays and steps (the line says so)."""
     from rays_tpu_torch.core.types import tree_leaves, tree_map
-    from rays_tpu_torch.tracing import fused_slab, graphed_adjoint
+    from rays_tpu_torch.tracing import fused_slab, graphed_adjoint, slab_vjp
     from rays_tpu_torch.tracing.trace import RayResults, route, trace_batch, trace_rays
 
     card, dev = run.card, run.dev
@@ -1410,10 +1417,24 @@ def adjoint_phase(run, full):
                 f"{name}: {graphed_adjoint.CAPTURES - c0} captures in two calls")
         require(per_call == (2 * steps,) * 2, f"{name}: replays per call {per_call}")
         require(fused_slab.LAUNCHES == l0, f"{name}: the adjoint launched B1")
+        # the slab kernels' configs: the forward is B1's arithmetic, equal
+        # counts and stops, the rest at rounding level (SLAB_RTOL of each
+        # field's scale, the residuals as tests/test_torch_kernel_host.py)
+        kernels = slab_vjp.takes(cfg, dev)
+
+        def same_field(f, g, r):
+            if not kernels or not r.is_floating_point():
+                return torch.equal(g, r)
+            if f in ("residual", "end_residuals", "max_residuals"):
+                return torch.allclose(g, r, rtol=1e-6, atol=1e-12)
+            return float((g - r).abs().max()) <= SLAB_RTOL * float(r.abs().max())
+
         bad = [f for f, g, r in zip(RayResults._fields, got, ref)
-               if (g is None) != (r is None) or (r is not None and not torch.equal(g, r))]
+               if (g is None) != (r is None) or (r is not None and not same_field(f, g, r))]
         require(not bad, f"{name}: forward fields {bad} differ from trace_batch's")
-        require(torch.equal(loss, ref_loss), f"{name}: loss {float(loss)!r} vs {float(ref_loss)!r}")
+        require(torch.equal(loss, ref_loss) or (
+            kernels and abs(float(loss - ref_loss)) <= LOSS_RTOL * abs(float(ref_loss))),
+            f"{name}: loss {float(loss)!r} vs {float(ref_loss)!r}")
         worst, same = 0.0, 0
         rtol = ADJOINT_RTOL if v.dtype == torch.float64 else ADJOINT_RTOL_F32
         for i, (g, r) in enumerate(zip(grads, ref_grads)):
@@ -1423,9 +1444,10 @@ def adjoint_phase(run, full):
                     f"{name}: gradient {i} differs by {err:.3e} of scale {scale:.3e}")
             worst = max(worst, err / scale if scale else 0.0)
             same += bool(torch.equal(g, r))
+        how = "at rounding level (the slab kernels)" if kernels else "bit for bit"
         print(f"phase 30 {name} {rays} rays x {steps} steps{cut} "
               f"{str(v.dtype).replace('torch.', '')}, route {which}: forward and loss equal to "
-              f"trace_batch's bit for bit; {len(grads)} gradients within {worst:.3e} of scale "
+              f"trace_batch's {how}; {len(grads)} gradients within {worst:.3e} of scale "
               f"(bound {rtol}), {same} bit-equal; 1 capture, {per_call[0]} replays a "
               f"call; eager {eager_ms:.1f} ms, graphed {graphed_ms:.1f} ms "
               f"(x{eager_ms / graphed_ms:.2f}), first call {first_ms:.1f} ms; peak "
@@ -1506,7 +1528,7 @@ def slab_vjp_phase(run, rays=None, steps=None):
     first_s = time.perf_counter() - t1
     key = ("adjoint", *graphed.cache_key(cfg, p, v))
     slab = graphed._CACHE[key].loop.slab
-    require(slab is not None and slab.captured == 1,
+    require(slab is not None and slab.captured["vjp"] == 1,
             "trace_rays took the generic piece, or its VJP graph holds no one slab VJP launch")
     l0 = slab_vjp.LAUNCHES
     runs = [derivative_step(trace.trace_rays) for _ in range(3)]
@@ -1522,8 +1544,12 @@ def slab_vjp_phase(run, rays=None, steps=None):
 
     # the generic piece, captured alike on the same shapes
     held = (tree_map(torch.Tensor.detach, p), v, st)
-    loop = ga.StaticAdjoint(cfg, *held)
-    loop.slab = None    # the generic piece in place of the gate's kernel
+    class GenericVJP(ga.StaticAdjoint):
+        def functions(self):
+            # the generic VJP piece in place of the gate's kernel, beside its step
+            return {"step": self.step_slab, "vjp": self.vjp}
+
+    loop = GenericVJP(cfg, *held)
     with torch.no_grad():
         carry = trace.initial_carry(cfg, *held)
         entry = graphed.Captured(loop, lambda: loop.load_inputs(
@@ -1593,6 +1619,170 @@ def slab_vjp_phase(run, rays=None, steps=None):
             "plain_ms": gen_bwd[0] * steps, "bound_ms": bound_ms, "bound_by": "operations",
             "body_bound_ms": own_bound_ms,
             "library_ms": None}
+
+
+def slab_step_phase(run, rays=None, steps=None):
+    """Phase 37: the slab step kernel (tracing/slab_vjp.py,
+    csrc/slab_rk4_step.cuh in the slab VJP's library) as the adjoint
+    graph's forward piece, at phase 36's shapes: the cell's endpoint loss
+    and its gradient in every floating Params leaf through trace_rays (both
+    kernel pieces, by the gate) against the same adjoint graph whose
+    forward is the generic step piece (a StaticAdjoint whose pieces are
+    the generic step and the slab VJP kernel, captured and replayed alike),
+    every gradient within ADJOINT_RTOL of its scale, npoints and stops
+    equal and the end states within SLAB_RTOL of scale; the forward against
+    B1 on the same inputs (trace_rays without gradients): npoints and stops
+    equal, the end states within SLAB_RTOL of scale; the device ms per step of both forwards from the spans' CUDA
+    events and the kernel's own from the profiler; its launches (those
+    captured into the step graph, at each replay; the profiler's count);
+    its registers and spills beside the VJP's, and its bound: live ray
+    steps at B1's frozen count (benchmark/counts/slab_rk4_time.json) at
+    the published FP64 peak, against the carry read and written and the
+    stack row written at the memory rate.  Returns the kernels line's
+    row."""
+    import functools
+
+    from rays_tpu_torch import examples
+    from rays_tpu_torch.core.types import tree_leaves, tree_map
+    from rays_tpu_torch.tracing import graphed, graphed_adjoint as ga, slab_vjp, trace
+    from rays_tpu_torch.utils import op_rates, spans
+
+    card, dev = run.card, run.dev
+    rays, steps = rays or SLAB_VJP_RAYS, steps or SLAB_VJP_STEPS
+    lib, log = slab_vjp.load_library(torch.float64, 2)
+    reports = {}
+    for kernel in ("slab_rk4_step_kernel", "slab_rk4_vjp_kernel"):
+        m = re.search(kernel + r".*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
+        require(m, f"no sm_90a ptxas report of {kernel} in the library's build log:\n{log}")
+        reports[kernel] = (int(m[2]), int(m[1]))
+    occ = slab_vjp.occupancy(lib, "step")
+    require(occ["blocks_per_sm"] >= 1, f"the slab step cannot launch: {occ}")
+    (regs, spill), (vjp_regs, vjp_spill) = reports.values()
+    print(f"phase 37 build: slab_rk4_step_kernel f64 S=2: ptxas {regs} registers, {spill} B "
+          f"spilled (the VJP beside it: {vjp_regs} registers, {vjp_spill} B); granted "
+          f"{occ['blocks_per_sm']} blocks x {occ['threads']} threads = {occ['warps_per_sm']} "
+          f"warps per SM, {occ['local_bytes']} B local")
+
+    cfg, params, v0, st0, pwr0 = examples.setup_example(examples.SLAB_ECH_90GHZ, device=dev)
+    cfg = dataclasses.replace(cfg, nstep_max=steps, save_trajectory=False)
+    v, st, w = examples.replicate_rays(v0, st0, pwr0, rays)
+    require(slab_vjp.takes(cfg, dev) and trace.route(cfg, True, dev) == "adjoint",
+            "the cell's config takes the adjoint graph with the slab kernels")
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(t.is_floating_point()), params)
+    leaves = [t for t in tree_leaves(p) if t.is_floating_point()]
+
+    def derivative_step(tracer):
+        """(gradients, results, forward ms, backward ms per outer step)."""
+        spans.clear()
+        with spans.recording():
+            res = tracer(cfg, p, v, st, w)
+            loss = (res.end_ray_vec[:, 0:3] ** 2 * w[:, None]).sum()
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+            torch.cuda.synchronize()
+        ms = {r.name: r.device_ms for r in spans.records()}
+        spans.clear()
+        return (grads, res, ms["rays.adjoint.forward"] / steps,
+                ms["rays.adjoint.backward"] / steps)
+
+    derivative_step(trace.trace_rays)      # the capture, if phase 36 has not made it
+    entry = graphed._CACHE[("adjoint", *graphed.cache_key(cfg, p, v))]
+    side = entry.loop.slab
+    require(side is not None and side.captured["step"] == 1,
+            "trace_rays took the generic step piece, or its graph holds no one slab step launch")
+    l0 = slab_vjp.STEP_LAUNCHES
+    runs = [derivative_step(trace.trace_rays) for _ in range(3)]
+    launches = (slab_vjp.STEP_LAUNCHES - l0) // len(runs)
+    require(launches == steps, f"{launches} launches of the slab step a forward")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        derivative_step(trace.trace_rays)
+    found = [e for e in prof.key_averages() if "slab_rk4_step_kernel" in e.key]
+    traced = sum(e.count for e in found)
+    require(traced == steps, f"the profiler saw {traced} slab step kernels in a forward")
+    dev_us = sum(getattr(e, "device_time_total", 0) or e.cuda_time_total for e in found)
+    kernel_ms = dev_us / 1e3 / traced
+    grads, res = runs[0][0], runs[0][1]
+
+    # B1 on the same inputs, without gradients
+    with torch.no_grad():
+        b1 = trace.trace_rays(cfg, tree_map(torch.Tensor.detach, p), v, st, w)
+    require(torch.equal(res.npoints, b1.npoints) and torch.equal(res.stop_flag, b1.stop_flag),
+            "phase 37: npoints or stops differ from B1's")
+    scale = res.end_ray_vec.detach().abs().amax(0).clamp_min(1e-12)
+
+    def end_gap_to(other):
+        return float(((res.end_ray_vec.detach() - other.end_ray_vec.detach()).abs()
+                      / scale).max())
+
+    end_gap = end_gap_to(b1)
+    require(end_gap <= SLAB_RTOL, f"phase 37: end states {end_gap:.3e} of scale from B1's")
+
+    # the generic step piece under the same VJP kernel, captured alike
+    held = (tree_map(torch.Tensor.detach, p), v, st)
+    class GenericStep(ga.StaticAdjoint):
+        def functions(self):
+            # the generic step piece in place of the gate's kernel, beside its VJP
+            return {"step": self.step, "vjp": self.vjp_slab}
+
+    loop = GenericStep(cfg, *held)
+    with torch.no_grad():
+        carry = trace.initial_carry(cfg, *held)
+        gentry = graphed.Captured(loop, lambda: loop.load_inputs(
+            carry, [t for t in tree_leaves(held[0]) if t.is_floating_point()]), ga.WARMUP)
+    generic = lambda cfg_, p_, v_, st_, w_: ga.trace_adjoint(  # noqa: E731
+        cfg_, p_, v_, st_, w_, lambda: (loop, functools.partial(ga._replay, gentry)))
+    gen_runs = [derivative_step(generic) for _ in range(2)]
+    ref, gen_res = gen_runs[0][0], gen_runs[0][1]
+    gentry.release()
+    del loop, gentry
+    require(torch.equal(gen_res.npoints, res.npoints)
+            and torch.equal(gen_res.stop_flag, res.stop_flag),
+            "phase 37: npoints or stops differ from the generic step's")
+    gen_gap = end_gap_to(gen_res)
+    require(gen_gap <= SLAB_RTOL,
+            f"phase 37: end states {gen_gap:.3e} of scale from the generic step's")
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(grads, ref)):
+        scale_ = float(r.abs().max()) if r.numel() else 0.0
+        err = float((g - r).abs().max()) if r.numel() else 0.0
+        require(bool(torch.isfinite(g).all()) and err <= ADJOINT_RTOL * scale_,
+                f"phase 37: gradient {i} differs by {err:.3e} of scale {scale_:.3e}")
+        worst = max(worst, err / scale_ if scale_ else 0.0)
+
+    # the bound: B1's frozen count a live ray step at the FP64 peak, against
+    # the bytes of a step: the carry read and written, its stack row written
+    with open(Path(__file__).resolve().parent / "benchmark" / "counts"
+              / "slab_rk4_time.json") as f:
+        per_live = json.load(f)["ops_per_live_step"]
+    live_steps = float((res.npoints.double() - 1).sum())
+    ops_ms = live_steps * per_live / op_rates.PEAK_FLOPS[torch.float64] * 1e3 / steps
+    row = sum(t.element_size() * t[0].numel() for t in entry.loop.carry)
+    bytes_ms = 3 * row * rays / op_rates.HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    fwd = sorted(r[2] for r in runs)
+    bwd = sorted(r[3] for r in runs)
+    gen_fwd = sorted(r[2] for r in gen_runs)
+    print(f"phase 37 slab step {rays} rays x {steps} steps f64: {len(grads)} gradients within "
+          f"{worst:.3e} of scale of the generic step's under the same VJP (bound "
+          f"{ADJOINT_RTOL}); npoints and stops equal to B1's and the generic step's, end "
+          f"states within {end_gap:.3e} of B1's and {gen_gap:.3e} of the generic step's "
+          f"(bound {SLAB_RTOL}); {launches} launches a forward ({traced} in the "
+          f"profiler's trace); forward {fwd[0]:.5f}-{fwd[-1]:.5f} ms per outer step (generic "
+          f"{gen_fwd[0]:.4f}-{gen_fwd[-1]:.4f}, x{gen_fwd[0] / fwd[-1]:.1f}), the kernel alone "
+          f"{kernel_ms:.5f} ms; backward {bwd[0]:.5f}-{bwd[-1]:.5f}; bound {bound_ms:.6f} ms per "
+          f"step (operations {ops_ms:.6f}: {live_steps:.0f} live ray steps x {per_live}; bytes "
+          f"{bytes_ms:.6f}: 3 x {row} B a ray), share {bound_ms / kernel_ms:.4f} on {card}")
+    run.paths.append({"name": "slab_step_training_step_f64", "route": "adjoint", "rays": rays,
+                      "steps": steps, "forward_ms_per_step": fwd,
+                      "generic_forward_ms_per_step": gen_fwd, "backward_ms_per_step": bwd,
+                      "kernel_ms_per_step": kernel_ms, "worst_grad_rel": worst,
+                      "end_gap_b1": end_gap, "end_gap_generic": gen_gap, "registers": regs, "spill_bytes": spill,
+                      "vjp_registers": vjp_regs, "vjp_spill_bytes": vjp_spill})
+    return {"name": "slab_rk4_step", "route": "cuda",
+            "source": "rays_tpu_torch/csrc/slab_rk4_step.cuh",
+            "replaces": "the graphed adjoint's generic step piece (tracing/graphed_adjoint.py)",
+            "launches": launches, "max_abs_err": worst, "ms": kernel_ms * steps,
+            "plain_ms": gen_fwd[0] * steps, "bound_ms": bound_ms * steps,
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations", "library_ms": None}
 
 
 def tangent_direction(params, v, w, seed):
@@ -3050,9 +3240,10 @@ def main(argv=None):
         registered_model_phase(run)
         jacfwd_columns_phase(run, closed_columns)
         del closed_columns
-    vjp_kernel = None
+    vjp_kernel = step_kernel = None
     if "adjoint" in groups:
         vjp_kernel = slab_vjp_phase(run)
+        step_kernel = slab_step_phase(run)
         adjoint_phase(run, not every)
         eviction_phase(run)
         training_phase(run)
@@ -3092,8 +3283,7 @@ def main(argv=None):
             "library_ms": None,
         } for name, (launches, err, (t_kern, t_plain), (bound, bound_by))
             in ((k, kernels[k]) for k in ("slab_rk4", "slab_rk4_damped"))]
-    if vjp_kernel is not None:
-        b1.append(vjp_kernel)
+    b1 += [k for k in (vjp_kernel, step_kernel) if k is not None]
     if b1 or op_kernels:
         print(json.dumps({"kernels": b1 + op_kernels}))
     print(json.dumps({"ok": True, "device": {

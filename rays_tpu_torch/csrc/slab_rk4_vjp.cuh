@@ -24,7 +24,9 @@
 // Decisions come from the stack, not from the recompute: whether the ray
 // stepped (nstep after minus nstep before) and which branch of max_res's
 // torch.maximum was taken (ties split evenly, NaN to both), since the
-// recompute's arithmetic is the kernel's and the forward's was trace.step's.
+// recompute's arithmetic is the slab kernel's and the forward's may have been
+// trace.step's (the generic step piece; on the card the slab step kernel,
+// slab_rk4_step.cuh, runs rk4_stages below as the recompute does).
 // A ray that did not step passes its cotangents through and computes no
 // derivative.  Params come from a packed device vector at every launch (an
 // inverse problem changes them at every iteration, and a captured launch
@@ -176,13 +178,13 @@ struct RunCot {
   T alpha_w2[S], gamma_w[S], dn_linear[S], n0s[S];
 };
 
-// The run values from the packed vector, and derive_run's derived fields
-// that a step reads, by its formulas.  The fields a step does not read
-// stay zero (the bounds and temperatures of point_err, whose status is
-// dead code here).
+// The run values from the packed vector pv (P_* rows), and derive_run's
+// derived fields that a step reads, by its formulas.  The fields a step
+// does not read stay as they were (the VJP leaves the bounds and
+// temperatures of point_err zero: their status is dead code there).
 template <typename T, int S>
-RAYS_HD void load_run(const SlabVjpArgs<T>& a, SlabRun<T>& r) {
-  const T* pv = a.params;
+RAYS_HD void load_run(const T* pv, int32_t by_model, int32_t bz_model, int32_t dens_model,
+                      int32_t time_param, SlabRun<T>& r) {
   r.rmaj = pv[P_RMAJ];
   r.rmin = pv[P_RMIN];
   r.x0 = pv[P_X0];
@@ -203,10 +205,10 @@ RAYS_HD void load_run(const SlabVjpArgs<T>& a, SlabRun<T>& r) {
     r.gamma_coef[s] = pv[P_SPECIES + S + s];
     r.n0s[s] = pv[P_SPECIES + 2 * S + s];
   }
-  r.by_model = a.by_model;
-  r.bz_model = a.bz_model;
-  r.dens_model = a.dens_model;
-  r.time_param = a.time_param;
+  r.by_model = by_model;
+  r.bz_model = bz_model;
+  r.dens_model = dens_model;
+  r.time_param = time_param;
   const T wratio = r.omgrf_ref / r.omgrf;
   r.inv_k0 = T(1) / r.k0;
   r.inv_omgrf = T(1) / r.omgrf;
@@ -224,6 +226,42 @@ RAYS_HD void load_run(const SlabVjpArgs<T>& a, SlabRun<T>& r) {
     r.gamma_w[s] = r.gamma_coef[s] * wratio;
     r.dn_linear[s] = r.n0s[s] / r.ln_scale;
   }
+}
+
+// RK4 stages 2-4 of one outer step from the state v and the carried first
+// stage f1 (tracing/rk4.rk4_step_carried, in trace_one's order of
+// arithmetic): f2, f3, f4, the weighted sum f1 + 2 f2 + 2 f3 + f4 and the
+// state after, vn.  The slots that cannot move in a slab get f = 0.
+// Returns the first nonzero status of the three evaluations.  The
+// forward step (slab_rk4_step.cuh) and the VJP's recompute of that step
+// below are this one function.
+template <typename T, int S>
+RAYS_HD int32_t rk4_stages(const SlabRun<T>& r, const T* v, const T* f1, T* f2, T* f3, T* f4,
+                           T* sum, T* vn) {
+  constexpr int NV = state_width<S, DAMP_NONE>();
+  T vt[NV];
+  int32_t st2, st3, st4, cst;
+  T res;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    f2[j] = f3[j] = f4[j] = T(0);
+    vt[j] = v[j] + r.half_ds * f1[j];
+  }
+  eval_point<T, S, DAMP_NONE, false>(r, vt, f2, st2, res, cst);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) vt[j] = v[j] + r.half_ds * f2[j];
+  eval_point<T, S, DAMP_NONE, false>(r, vt, f3, st3, res, cst);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) vt[j] = v[j] + r.ds * f3[j];
+  eval_point<T, S, DAMP_NONE, false>(r, vt, f4, st4, res, cst);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    sum[j] = f1[j] + T(2) * f2[j];
+    sum[j] += T(2) * f3[j];
+    vn[j] = v[j] + r.sixth_ds * (sum[j] + f4[j]);
+    sum[j] += f4[j];
+  }
+  return st2 != 0 ? st2 : (st3 != 0 ? st3 : st4);
 }
 
 // deriv_cold's D-gradient block as eval_point computes it: the partial
@@ -761,7 +799,7 @@ RAYS_HD void step_vjp(const SlabVjpArgs<T>& a, int64_t i) {
   if (stepped == 0) return;  // every cotangent passes through
 
   SlabRun<T> r{};
-  load_run<T, S>(a, r);
+  load_run<T, S>(a.params, a.by_model, a.bz_model, a.dens_model, a.time_param, r);
   T v[NV], f1[NV];
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
@@ -769,29 +807,9 @@ RAYS_HD void step_vjp(const SlabVjpArgs<T>& a, int64_t i) {
     f1[j] = a.stack_f1[at * NV + j];
   }
 
-  // --- the step again (tracing/rk4.rk4_step_carried, as trace_one does it)
+  // --- the step again (rk4_stages, as the forward step does it)
   T vt[NV], f2[NV], f3[NV], f4[NV], sum[NV], vn[NV];
-  int32_t st, cst;
-  T res;
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    f2[j] = f3[j] = f4[j] = T(0);
-    vt[j] = v[j] + r.half_ds * f1[j];
-  }
-  eval_point<T, S, DAMP_NONE, false>(r, vt, f2, st, res, cst);
-#pragma unroll
-  for (int j = 0; j < NV; ++j) vt[j] = v[j] + r.half_ds * f2[j];
-  eval_point<T, S, DAMP_NONE, false>(r, vt, f3, st, res, cst);
-#pragma unroll
-  for (int j = 0; j < NV; ++j) vt[j] = v[j] + r.ds * f3[j];
-  eval_point<T, S, DAMP_NONE, false>(r, vt, f4, st, res, cst);
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    sum[j] = f1[j] + T(2) * f2[j];
-    sum[j] += T(2) * f3[j];
-    vn[j] = v[j] + r.sixth_ds * (sum[j] + f4[j]);
-    sum[j] += f4[j];
-  }
+  rk4_stages<T, S>(r, v, f1, f2, f3, f4, sum, vn);
 
   // --- the cotangents of the step's outputs (step_end): the accepted
   // state, its trajectory row, the endpoint RHS, end_res and max_res

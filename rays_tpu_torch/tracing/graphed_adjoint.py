@@ -33,8 +33,9 @@ static buffers and adds its own):
   before step k into a stack at the device index k (the carry that
   ``jax.checkpoint`` keeps), then runs ``trace.step`` as the graph route
   does.  So the forward results are bit for bit those of the graph route
-  without gradients.  The stack takes (2 nv + 3) 8 + 12 bytes per ray and
-  step in float64.
+  without gradients, except on the card for the slab kernel's
+  configurations without damping (below).  The stack takes (2 nv + 3) 8 +
+  12 bytes per ray and step in float64.
 * Backward: the incoming cotangents are copied into static buffers (zeros
   where none came) and the ``"vjp"`` piece is replayed ``nstep_max``
   times.  It steps the device index down by one, reads that step's carry
@@ -52,8 +53,15 @@ static buffers and adds its own):
   same stack and the Params values packed on the device at each run's
   load, writes the carry cotangent in place and adds the Params
   cotangents into a per-ray accumulator that the backward sums into the
-  leaves' accumulators once, after the sweep.  The generic piece is its
-  plain version; every other configuration, and the CPU, keep it.
+  leaves' accumulators once, after the sweep.  They take another
+  ``"step"`` piece too: one launch of the hand-written slab step (the
+  same library), which writes the stack and steps the carry in place
+  with the slab kernel's arithmetic, and the step index's increment.
+  Their forward is then what the no-gradient route (the slab kernel,
+  tracing/fused_slab.py) computes, at rounding level from
+  ``trace.step``'s, and the VJP differentiates that arithmetic.  The
+  generic pieces are their plain versions; every other configuration, and
+  the CPU, keep them.
 * ``cfg.remat_steps`` changes only the plain route's memory: the VJP
   always recomputes its step.
 
@@ -71,7 +79,8 @@ capture), it first replays its own forward from its saved inputs.
 
 ``CAPTURES`` counts the configurations captured, ``REPLAYS`` the step
 and VJP replays; a replay of a VJP graph adds to ``slab_vjp.LAUNCHES``
-the slab VJP's launches captured into it.  The spans of utils/spans.py,
+the slab VJP's launches captured into it, a replay of a step graph to
+``slab_vjp.STEP_LAUNCHES`` the slab step's.  The spans of utils/spans.py,
 each stamped with CUDA events: ``rays.adjoint.forward`` around the step
 replays, ``rays.adjoint.backward`` around the VJP replays and
 ``rays.adjoint.reforward`` around a forward that a backward replays.
@@ -127,12 +136,13 @@ class StaticAdjoint(graphed.StaticLoop):
     one configuration and one set of input shapes: the pieces ``"step"``
     and ``"vjp"``.  Each reads and writes the static buffers only.
 
-    The ``"vjp"`` piece is one of two, fixed here from the config and the
-    device (``slab_vjp.takes``): on CUDA, the slab kernel's configurations
-    without damping take the hand-written VJP kernel
+    Both pieces are one of two, fixed here from the config and the device
+    (``slab_vjp.takes``): on CUDA, the slab kernel's configurations without
+    damping take the hand-written kernels, the slab step and the slab VJP
     (tracing/slab_vjp.py); every other configuration, and the CPU, the
-    generic recompute under autograd, which is the kernel's plain version.
-    ``slab`` holds the kernel's side (``slab_vjp.SlabVJP``) or None."""
+    generic ``trace.step`` and its recompute under autograd, which are the
+    kernels' plain versions.  ``slab`` holds the kernels' side
+    (``slab_vjp.SlabVJP``) or None."""
 
     def __init__(self, cfg, params, v0, status0):
         check_capturable(cfg)
@@ -153,7 +163,9 @@ class StaticAdjoint(graphed.StaticLoop):
                      if slab_vjp.takes(cfg, v0.device) else None)
 
     def functions(self):
-        return {"step": self.step, "vjp": self.vjp if self.slab is None else self.vjp_slab}
+        if self.slab is None:
+            return {"step": self.step, "vjp": self.vjp}
+        return {"step": self.step_slab, "vjp": self.vjp_slab}
 
     def step(self):
         """The carry into the stack at k, then one whole outer step."""
@@ -161,6 +173,12 @@ class StaticAdjoint(graphed.StaticLoop):
         for buf, t in zip(self.stack, self.carry):
             buf.index_copy_(0, at, t[None])
         super().step()
+
+    def step_slab(self):
+        """The carry into the stack at k and one whole outer step as one
+        launch of the slab step kernel, then k stepped up."""
+        self.slab.launch("step")
+        self.k.add_(1)
 
     def vjp(self):
         """The VJP of outer step k - 1 (k the device index, stepped down):
@@ -203,7 +221,7 @@ class StaticAdjoint(graphed.StaticLoop):
         the carry cotangent in place, the Params cotangents into its
         per-ray accumulator (summed into ``acc`` after the sweep)."""
         self.k.sub_(1)
-        self.slab.launch()
+        self.slab.launch("vjp")
 
     # --- a run ------------------------------------------------------------
 
@@ -390,6 +408,6 @@ def _replay(entry, name):
     global REPLAYS
     entry.launch(name)
     REPLAYS += 1
-    if name == "vjp" and entry.loop.slab is not None:
-        # the launches that the slab VJP made into the captured graph
-        slab_vjp.LAUNCHES += entry.loop.slab.captured
+    if entry.loop.slab is not None:
+        # the launches that the slab kernels made into the captured graph
+        entry.loop.slab.replayed(name)

@@ -1,5 +1,5 @@
-"""The VJP of the undamped slab RK4 step as one CUDA kernel: the adjoint
-graph's backward piece (tracing/graphed_adjoint.py) for the slab kernel's
+"""The undamped slab RK4 step and its VJP as two CUDA kernels: the
+adjoint graph's pieces (tracing/graphed_adjoint.py) for the slab kernel's
 configurations without damping.
 
 The generic backward piece recomputes ``trace.step`` under autograd and
@@ -13,18 +13,33 @@ the adjoint graph keeps, recomputes the step with the slab kernel's
 physics, runs it backwards by hand, writes the float carry's cotangents
 back in place and adds the cotangents of the Params values it reads into
 a (rows, B) accumulator.  ``SlabVJP.reduce`` sums that over rays into the
-leaves' accumulators once per backward.  Its plain version is the generic
-piece: the tests hold the same body, built with g++
-(``csrc/slab_rk4_vjp_host.cpp``), to it on the CPU.
+leaves' accumulators once per backward.
+
+The generic forward piece copies the carry into the stack
+(``index_copy_``) and runs ``trace.step``: about 1,250 library kernels a
+step.  Here it is one launch of ``rays::slab_rk4_step`` (in the same
+library, the per-ray body in ``csrc/slab_rk4_step.cuh``): one thread per
+ray writes its carry into the stack at the device index k, steps it with
+the slab kernel's physics and the RK4 stages that the VJP recomputes, and
+writes the carry after the step in place (with trajectories, row k + 1
+too).  Both kernels read the Params from one packed device vector that
+``SlabVJP.pack`` fills at each run's load, so a captured launch reads
+each run's values and nothing is read on the host.  Their plain versions
+are the generic pieces: the tests hold the same bodies, built with g++
+(``csrc/slab_rk4_vjp_host.cpp``), to them on the CPU.
 
 ``takes`` is the gate, one decision from the config and the device: CUDA
 tensors, ``fused_slab.supported(cfg)`` and ``damping_model == "no_damp"``;
-``StaticAdjoint`` makes it and nothing else does.  Every other
-configuration keeps the generic piece.  A failed build or launch raises;
-nothing falls back.  ``LAUNCHES`` counts the kernel's launches in this
-process, not the host build's: those made outside a capture here, and for
-a captured piece the launches ``SlabVJP.launch`` made into its graph
-(``captured``), added at each replay (``graphed_adjoint._replay``).
+``StaticAdjoint`` makes it and nothing else does, and takes both kernels
+or neither, so a run differentiates the arithmetic it ran: on the card
+its forward is the slab kernel's arithmetic (tracing/fused_slab.py), at
+rounding level from ``trace.step``'s.  Every other configuration keeps
+the generic pieces.  A failed build or launch raises; nothing falls
+back.  ``LAUNCHES`` (the VJP) and ``STEP_LAUNCHES`` (the step) count the
+kernels' launches in this process, not the host build's: those made
+outside a capture here, and for a captured piece the launches that
+``SlabVJP.launch`` made into its graph (``captured``), added at each
+replay (``SlabVJP.replayed``, from ``graphed_adjoint._replay``).
 """
 
 from __future__ import annotations
@@ -38,8 +53,9 @@ import torch
 from rays_tpu_torch import native
 from rays_tpu_torch.tracing import fused_slab
 
-# launches of the CUDA kernel in this process (not of the host build)
-LAUNCHES = 0
+# launches of the CUDA kernels in this process (not of the host build)
+LAUNCHES = 0        # the VJP
+STEP_LAUNCHES = 0   # the forward step
 
 # the packed Params vector and the accumulator rows, in rays::P_* order;
 # then alpha_coef, gamma_coef and n0s, S rows each
@@ -47,6 +63,13 @@ ROWS = (("eq", "rmaj"), ("eq", "rmin"), ("eq", "x0"), ("eq", "by0"), ("eq", "bz0
         ("eq", "lby_shear_scale"), ("eq", "lbz_scale"), ("eq", "dbzdx"), ("eq", "ln_scale"),
         ("eq", "alphan1"), ("rf", "omgrf"), ("rf", "omgrf_ref"), ("rf", "k0"), ("ode", "ds"))
 SPECIES_ROWS = (("species", "alpha_coef"), ("species", "gamma_coef"), ("species", "n0s"))
+# then the rows that only the forward step reads, in rays::F_* order,
+# with no accumulator rows; then t0s, alphat1, alphat2 and t_min, S rows
+# each
+STEP_ROWS = (("eq", "xmin"), ("eq", "xmax"), ("eq", "ymin"), ("eq", "ymax"), ("eq", "zmin"),
+             ("eq", "zmax"), ("ode", "s_max"), ("limits", "dispersion_resid_limit"),
+             ("eq", "lt_scale"), ("eq", "dtdx"))
+STEP_SPECIES_ROWS = (("species", "t0s"), ("eq", "alphat1"), ("eq", "alphat2"), ("eq", "t_min"))
 
 NVCC_FLAGS = fused_slab.NVCC_FLAGS
 HOST_FLAGS = fused_slab.HOST_FLAGS
@@ -73,33 +96,57 @@ def _args_type(ctype):
     return SlabVjpArgs
 
 
-_ARGS = {torch.float64: _args_type(ctypes.c_double), torch.float32: _args_type(ctypes.c_float)}
+_CARRY = ("v", "f1", "st1", "hstate", "status", "nstep", "end_res", "max_res")
+
+
+def _step_args_type(ctype):
+    p = ctypes.c_void_p
+
+    class SlabStepArgs(ctypes.Structure):
+        _fields_ = ([(n, p) for n in ("params", "k", *_CARRY)]
+                    + [(f"stack_{n}", p) for n in _CARRY]
+                    + [("traj", p), ("resid", p), ("B", ctypes.c_int64)]
+                    + [(n, ctypes.c_int32) for n in ("nstep_max", "by_model", "bz_model",
+                                                     "dens_model", "time_param", "pad")]
+                    + [("t_model", ctypes.c_int32 * fused_slab.MAX_SPECIES)])
+    return SlabStepArgs
+
+
+# each piece's argument struct by precision, and the header that declares it
+_ARGS = {"vjp": ({torch.float64: _args_type(ctypes.c_double),
+                  torch.float32: _args_type(ctypes.c_float)}, "slab_rk4_vjp.cuh"),
+         "step": ({torch.float64: _step_args_type(ctypes.c_double),
+                   torch.float32: _step_args_type(ctypes.c_float)}, "slab_rk4_step.cuh")}
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 
 def bind(lib):
     """Declare the C interface of a slab VJP library (the CUDA launchers or
-    the host build of the same body) and check the argument layout."""
-    for dtype, suffix in _SUFFIX.items():
-        size = getattr(lib, f"rays_slab_vjp_args_size_{suffix}")
-        size.argtypes, size.restype = [], ctypes.c_int
-        if size() != ctypes.sizeof(_ARGS[dtype]):
-            raise RuntimeError(
-                f"SlabVjpArgs<{suffix}> layout differs between csrc/slab_rk4_vjp.cuh "
-                f"({size()} bytes) and slab_vjp.py ({ctypes.sizeof(_ARGS[dtype])} bytes)")
-        fn = getattr(lib, f"rays_slab_vjp_{suffix}")
-        fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    the host build of the same bodies) and check the argument layouts."""
+    for piece, (types, header) in _ARGS.items():
+        for dtype, suffix in _SUFFIX.items():
+            size = getattr(lib, f"rays_slab_{piece}_args_size_{suffix}")
+            size.argtypes, size.restype = [], ctypes.c_int
+            want = ctypes.sizeof(types[dtype])
+            if size() != want:
+                raise RuntimeError(
+                    f"{types[dtype].__name__}<{suffix}> layout differs between csrc/{header} "
+                    f"({size()} bytes) and slab_vjp.py ({want} bytes)")
+            fn = getattr(lib, f"rays_slab_{piece}_{suffix}")
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
 
 
-_FILES = ("slab_rk4_vjp.cuh", "slab_rk4.cuh")
+_FILES = ("slab_rk4_step.cuh", "slab_rk4_vjp.cuh", "slab_rk4.cuh")
 
 
 @functools.lru_cache(maxsize=None)
 def load_library(dtype, ns):
     """Build (at first use, with nvcc) and load the CUDA library of one
-    precision and species count; returns (ctypes library, compiler output
-    with the -Xptxas -v report)."""
+    precision and species count, the VJP and the forward step; returns
+    (ctypes library, compiler output with the -Xptxas -v report of both
+    kernels)."""
     nvcc = fused_slab._nvcc()
     files = [native.CSRC / f for f in ("slab_rk4_vjp.cu", *_FILES)]
     flags = (f"-DRAYS_VJP_SPECIES={int(ns)}", f"-DRAYS_VJP_F64={int(dtype == torch.float64)}")
@@ -112,11 +159,11 @@ def load_library(dtype, ns):
 @functools.lru_cache(maxsize=None)
 def load_host_library():
     """Build (at first use, with g++) and load the host build of the same
-    body, ``csrc/slab_rk4_vjp_host.cpp``, for the CPU tests and
+    bodies, ``csrc/slab_rk4_vjp_host.cpp``, for the CPU tests and
     ``count_ops``.  Nothing on the tracing path uses it."""
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: the host build of the slab VJP needs it")
+        raise RuntimeError("g++ not found: the host build of the slab kernels needs it")
     files = [native.CSRC / f for f in ("slab_rk4_vjp_host.cpp", "counted.h", *_FILES)]
     (path, _), = native.build_all([(
         "slab_rk4_vjp_host", files,
@@ -127,16 +174,17 @@ def load_host_library():
     return lib
 
 
-def occupancy(lib):
-    """What the CUDA runtime reports for a CUDA library's instantiation:
+def occupancy(lib, kernel="vjp"):
+    """What the CUDA runtime reports for a CUDA library's instantiation of
+    the VJP (``kernel="vjp"``) or of the forward step (``"step"``):
     {threads per block, blocks per SM, warps per SM, registers, local
     bytes}."""
     out = (ctypes.c_int * 4)()
-    fn = lib.rays_slab_vjp_occupancy
+    fn = getattr(lib, f"rays_slab_{kernel}_occupancy")
     fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
     rc = fn(ctypes.addressof(out))
     if rc != 0:
-        raise RuntimeError(f"slab VJP occupancy query failed with CUDA error {rc}")
+        raise RuntimeError(f"slab {kernel} occupancy query failed with CUDA error {rc}")
     threads, blocks, regs, local = out
     return {"threads": threads, "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
             "registers": regs, "local_bytes": local}
@@ -147,46 +195,65 @@ def _ptr(t):
 
 
 class SlabVJP:
-    """The kernel's side of one ``StaticAdjoint`` (``loop``): the packed
-    Params vector, the (rows, B) accumulator and the launch's arguments,
-    all on the loop's static buffers, so that a captured launch reads the
-    values of each run.  ``lib``: a bound library whose code can address
-    the loop's tensors (the CUDA library, or the host build on the CPU)."""
+    """The kernels' side of one ``StaticAdjoint`` (``loop``): the packed
+    Params vector (its ``STEP_ROWS`` for the forward step), the VJP's
+    (rows, B) accumulator and each piece's launch arguments, all on the
+    loop's static buffers, so that a captured launch reads the values of
+    each run.  ``lib``: a bound library whose code can address the loop's
+    tensors (the CUDA library, or the host build on the CPU)."""
 
     def __init__(self, lib, loop):
         cfg, p = loop.cfg, loop.params
-        self.captured = 0       # launches made into a CUDA graph's capture
         if not fused_slab.supported(cfg) or cfg.damping_model != "no_damp":
             raise ValueError("the slab VJP takes the slab kernel's configs without damping")
         v = loop.carry[0]
         B, dt, dev = v.shape[0], v.dtype, v.device
+        for name, t in zip(_CARRY, loop.carry):
+            want = torch.int32 if name in ("st1", "status", "nstep") else dt
+            if t.dtype != want or not t.is_contiguous():
+                raise ValueError(f"carry {name}: {t.dtype}, want a contiguous {want}")
         self.lib, self.ns = lib, cfg.ns
+        # launches made into a CUDA graph's capture, by piece
+        self.captured = {"step": 0, "vjp": 0}
         # the packed vector's sources (a scalar leaf is one row), and for
         # each: its leaf's index in loop.leaves, its first and past-last rows
         leaves = [getattr(getattr(p, g), f) for g, f in ROWS + SPECIES_ROWS]
-        self.sources = [t.reshape(-1)[:cfg.ns] for t in leaves]
+        step = [getattr(getattr(p, g), f) for g, f in STEP_ROWS + STEP_SPECIES_ROWS]
+        # views of the leaves' values outside autograd: a view with a grad_fn
+        # would hold each leaf's gradient accumulator on this stream
+        self.sources = [t.detach().reshape(-1)[:cfg.ns] for t in leaves + step]
         index = {id(t): i for i, t in enumerate(loop.leaves)}
         self.leaf_of, start = [], 0
         for t, src in zip(leaves, self.sources):
             self.leaf_of.append((index[id(t)], start, start + src.numel()))
             start += src.numel()
-        self.params = torch.zeros((start,), dtype=dt, device=dev)
+        self.params = torch.zeros((sum(t.numel() for t in self.sources),), dtype=dt, device=dev)
         self.acc = torch.zeros((start, B), dtype=dt, device=dev)
         stack, carry = loop.stack, loop.carry
         cot_v, cot_f1, _, cot_end, cot_max = loop.cot
         st = cfg.eq_static
-        self.args = _ARGS[dt](
-            params=_ptr(self.params), k=_ptr(loop.k), stack_v=_ptr(stack[0]),
-            stack_f1=_ptr(stack[1]), stack_nstep=_ptr(stack[5]), stack_end=_ptr(stack[6]),
-            stack_max=_ptr(stack[7]), nstep_out=_ptr(carry[5]), end_out=_ptr(carry[6]),
-            cot_v=_ptr(cot_v), cot_f1=_ptr(cot_f1), cot_end=_ptr(cot_end),
-            cot_max=_ptr(cot_max), traj_cot=_ptr(loop.traj_cot), resid_cot=_ptr(loop.resid_cot),
-            acc=_ptr(self.acc), B=B, nstep_max=cfg.nstep_max,
-            by_model=fused_slab._BY_MODELS[st.by_prof_model],
-            bz_model=fused_slab._BZ_MODELS[st.bz_prof_model],
-            dens_model=fused_slab._DENS_MODELS[st.dens_prof_model],
-            time_param=int(cfg.ray_param == "time"), pad=0)
-        self.fn = getattr(lib, f"rays_slab_vjp_{_SUFFIX[dt]}")
+        models = dict(B=B, nstep_max=cfg.nstep_max,
+                      by_model=fused_slab._BY_MODELS[st.by_prof_model],
+                      bz_model=fused_slab._BZ_MODELS[st.bz_prof_model],
+                      dens_model=fused_slab._DENS_MODELS[st.dens_prof_model],
+                      time_param=int(cfg.ray_param == "time"), pad=0)
+        t_model = (ctypes.c_int32 * fused_slab.MAX_SPECIES)(
+            *[fused_slab._T_MODELS[m] for m in st.t_prof_model])
+        self.args = {
+            "vjp": _ARGS["vjp"][0][dt](
+                params=_ptr(self.params), k=_ptr(loop.k), stack_v=_ptr(stack[0]),
+                stack_f1=_ptr(stack[1]), stack_nstep=_ptr(stack[5]), stack_end=_ptr(stack[6]),
+                stack_max=_ptr(stack[7]), nstep_out=_ptr(carry[5]), end_out=_ptr(carry[6]),
+                cot_v=_ptr(cot_v), cot_f1=_ptr(cot_f1), cot_end=_ptr(cot_end),
+                cot_max=_ptr(cot_max), traj_cot=_ptr(loop.traj_cot),
+                resid_cot=_ptr(loop.resid_cot), acc=_ptr(self.acc), **models),
+            "step": _ARGS["step"][0][dt](
+                params=_ptr(self.params), k=_ptr(loop.k),
+                **{n: _ptr(t) for n, t in zip(_CARRY, carry)},
+                **{f"stack_{n}": _ptr(t) for n, t in zip(_CARRY, stack)},
+                traj=_ptr(loop.traj), resid=_ptr(loop.resid), t_model=t_model, **models)}
+        self.fn = {piece: getattr(lib, f"rays_slab_{piece}_{_SUFFIX[dt]}")
+                   for piece in self.args}
         self.device = dev
 
     def pack(self):
@@ -194,22 +261,26 @@ class SlabVJP:
         leaves, on the device (no host read)."""
         torch.cat(self.sources, out=self.params)
 
-    def launch(self):
-        """The VJP of outer step k (the loop's device index, already
-        stepped down) on the current stream.  Counted in ``LAUNCHES`` or,
-        made into a capture, in ``captured``."""
-        global LAUNCHES
+    def launch(self, piece):
+        """On the current stream, ``"step"``: outer step k (the loop's
+        device index, not stepped here); ``"vjp"``: the VJP of outer step k
+        (already stepped down).  Counted in ``STEP_LAUNCHES`` or
+        ``LAUNCHES``, or, made into a capture, in ``captured``."""
         stream = (torch.cuda.current_stream(self.device).cuda_stream
                   if self.device.type == "cuda" else None)
-        rc = self.fn(ctypes.addressof(self.args), self.ns, stream)
+        rc = self.fn[piece](ctypes.addressof(self.args[piece]), self.ns, stream)
         if rc != 0:
-            raise RuntimeError(f"slab VJP launch failed with error {rc}")
+            raise RuntimeError(f"slab {piece} launch failed with error {rc}")
         if self.device.type != "cuda":
             return
         if torch.cuda.is_current_stream_capturing():
-            self.captured += 1
+            self.captured[piece] += 1
         else:
-            LAUNCHES += 1
+            _count(piece, 1)
+
+    def replayed(self, piece):
+        """Count the launches captured into a piece's graph, at its replay."""
+        _count(piece, self.captured[piece])
 
     def reduce(self, acc):
         """The accumulator summed over rays into the leaves' accumulators
@@ -217,6 +288,14 @@ class SlabVJP:
         sums = self.acc.sum(1)
         for leaf, a, b in self.leaf_of:
             acc[leaf].view(-1)[:b - a].add_(sums[a:b])
+
+
+def _count(piece, n):
+    global LAUNCHES, STEP_LAUNCHES
+    if piece == "step":
+        STEP_LAUNCHES += n
+    else:
+        LAUNCHES += n
 
 
 def count_ops(loop):
@@ -236,7 +315,8 @@ def count_ops(loop):
     live = int((after != loop.stack[5][k]).sum())
     n_kinds = len(fused_slab.OP_KINDS)
     ops = (ctypes.c_int64 * (2 * n_kinds))()
-    rc = s.lib.rays_slab_vjp_count_ops(ctypes.addressof(s.args), s.ns, ctypes.addressof(ops))
+    rc = s.lib.rays_slab_vjp_count_ops(ctypes.addressof(s.args["vjp"]), s.ns,
+                                       ctypes.addressof(ops))
     if rc != 0:
         raise RuntimeError(f"rays_slab_vjp_count_ops failed ({rc})")
     return (dict(zip(fused_slab.OP_KINDS, ops[:n_kinds])),

@@ -22,6 +22,8 @@ graphs replay.  Held:
   ``convert``, at JAX_RTOL of each leaf's scale;
 * the "vjp" piece: no host read, no copy across devices, no autograd
   node whose backward reads the host (test_torch_graphed.py's audits);
+  and the "step" and "vjp" pieces of the slab kernels (tracing/slab_vjp.py,
+  on their host build) alike;
 * one reused loop answers two forwards with other Params, whose
   backwards run after both, each with its own gradients;
 * the dispatch: the adjoint graph on the card with reverse-mode
@@ -49,7 +51,7 @@ from rays_tpu_torch import convert, examples as tex, run as trun
 from rays_tpu_torch.config import schema as tschema
 from rays_tpu_torch.core.types import tree_leaves, tree_map
 from rays_tpu_torch.models import base as tbase
-from rays_tpu_torch.tracing import fused_slab, graphed, graphed_adjoint as ga
+from rays_tpu_torch.tracing import fused_slab, graphed, graphed_adjoint as ga, slab_vjp
 from rays_tpu_torch.tracing import trace as ttrace
 from rays_tpu_torch.tracing.capture_audit import HOST_READING_BACKWARDS, BackwardAudit, PieceAudit
 from test_axisym import AXISYM_TMPL
@@ -276,11 +278,17 @@ def test_mirror_loss_matches_jax_grad(tmp_path):
 # --- what the pieces issue ----------------------------------------------------
 
 
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", list(CASES) + ["slab_rk4_kernels"])
 def test_vjp_piece_reads_nothing_on_the_host(setups, name):
-    cfg, params, v0, st, pwr = _case(setups, CASES[name], save_trajectory=True, nstep_max=3)
+    kernels = name == "slab_rk4_kernels"
+    cfg, params, v0, st, pwr = _case(setups, CASES["slab_rk4" if kernels else name],
+                                     save_trajectory=True, nstep_max=3)
     loop = ga.StaticAdjoint(cfg, params, v0, st)
+    if kernels:
+        # the card's pieces, on the host build of their library
+        loop.slab = slab_vjp.SlabVJP(slab_vjp.load_host_library(), loop)
     pieces = loop.functions()
+    assert kernels == (pieces["step"] == loop.step_slab) == (pieces["vjp"] == loop.vjp_slab)
     audits = {n: (PieceAudit(), BackwardAudit()) for n in pieces}
     launched = collections.Counter()
 
@@ -298,8 +306,8 @@ def test_vjp_piece_reads_nothing_on_the_host(setups, name):
     for piece, (audit, backward) in audits.items():
         assert not audit.reads and not audit.crossings, (piece, audit.reads, audit.crossings)
         assert not set(backward.nodes) & HOST_READING_BACKWARDS, (piece, dict(backward.nodes))
-    # the forward builds no autograd node; the VJP's recompute does
-    assert not audits["step"][1].nodes and audits["vjp"][1].nodes
+    # the forward builds no autograd node; the generic VJP's recompute does
+    assert not audits["step"][1].nodes and bool(audits["vjp"][1].nodes) != kernels
     assert any(bool(g.abs().max() > 0) for g in grads)
 
 

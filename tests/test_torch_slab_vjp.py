@@ -21,12 +21,16 @@ each gradient's largest magnitude:
 * whole runs of the deck, with trajectories in time and without in arc
   length, against ``jax.value_and_grad`` of the JAX package's
   ``trace_batch`` on the same inputs: the loss and the gradient of every
-  floating Params leaf, v0 and pwr_wt within JAX_RTOL of its scale;
+  floating Params leaf, v0 and pwr_wt within JAX_RTOL of its scale, with
+  the generic "step" piece and with the slab step kernel's
+  (tests/test_torch_slab_step.py), whose forward the VJP then
+  differentiates;
 * one loop answering two forwards with other Params values, each
   backward its own gradients;
 * the gate: the slab kernel's configurations without damping take the
   kernel on CUDA, and nothing else does (the damped slab, the slab under
-  SG, the compensated carry, Solovev, the CPU).
+  SG, the compensated carry, Solovev, the CPU); where it opens, the slab
+  step kernel is taken with the VJP kernel, and nowhere else.
 """
 
 import dataclasses
@@ -145,22 +149,27 @@ def _weighted_loss(res, seed=7):
     return loss
 
 
-def _loop(cfg, params, v0, st, lib):
-    """A StaticAdjoint on the CPU, whose gate gives it the generic piece;
-    with a library, its "vjp" piece is that library's slab VJP instead."""
+def _loop(cfg, params, v0, st, lib, step=False):
+    """A StaticAdjoint on the CPU, whose gate gives it the generic pieces;
+    with a library, its "vjp" piece is that library's slab VJP instead, and
+    with ``step`` its "step" piece that library's slab step too."""
     loop = ga.StaticAdjoint(cfg, params, v0, st)
     if lib is not None:
         loop.slab = slab_vjp.SlabVJP(lib, loop)
+        if not step:
+            # the generic step piece beside the kernel's VJP
+            loop.functions = lambda: {"step": loop.step, "vjp": loop.vjp_slab}
     return loop
 
 
-def _run(cfg, params, v0, st, pwr, slab_lib, loop=None):
+def _run(cfg, params, v0, st, pwr, slab_lib, loop=None, step=False):
     """(loss, results, gradients of the floating Params leaves, v0 and
     pwr_wt) through a StaticAdjoint whose "vjp" piece is ``slab_lib``'s
-    kernel (None: the generic piece)."""
+    kernel (None: the generic piece), and with ``step`` its "step" piece
+    too."""
     p = _with_grad(params)
     v, w = v0.clone().requires_grad_(True), pwr.clone().requires_grad_(True)
-    loop = loop or _loop(cfg, p, v, st, slab_lib)
+    loop = loop or _loop(cfg, p, v, st, slab_lib, step)
     res = ga.trace_batch_static_adjoint(cfg, p, v, st, w, loop=loop)
     loss = _weighted_loss(res)
     leaves = [t for t in tree_leaves(p) if t.is_floating_point()] + [v, w]
@@ -273,17 +282,20 @@ def test_one_step_matches_generic_vjp(host_lib, where):
         assert torch.equal(kernel.cot[4][stepped], cots[4][stepped] / 2)
 
 
-@pytest.mark.parametrize("name", ["time", "arcl_summaries"])
+@pytest.mark.parametrize("name", ["time", "arcl_summaries", "time-step_kernel",
+                                  "arcl_summaries-step_kernel"])
 def test_whole_run_matches_jax_grad(host_lib, name):
-    """The deck's rays through the kernel's piece against jax.value_and_grad
+    """The deck's rays through the kernel's piece (with ``-step_kernel``,
+    the slab step kernel's forward piece too) against jax.value_and_grad
     of the JAX package's trace_batch, on the same inputs and loss."""
+    name, step = name.removesuffix("-step_kernel"), name.endswith("-step_kernel")
     changes = dict(nstep_max=STEPS, save_trajectory=name == "time")
     if name == "arcl_summaries":
         changes.update(ray_param="arcl")
     jcfg, jparams, jv0, jst, jpwr = tp.jax_case(
         ds=2.5e-3 if name == "arcl_summaries" else None, **changes)
     cfg, params, v0, st, pwr = tp.to_port(jcfg, jparams, jv0, jst, jpwr)
-    loss, res, grads = _run(cfg, params, v0, st, pwr, host_lib)
+    loss, res, grads = _run(cfg, params, v0, st, pwr, host_lib, step=step)
     weights = _weights(res)
 
     def jax_loss(p, v, w):
@@ -330,10 +342,13 @@ def test_a_reused_loop_answers_each_params(host_lib):
 # --- the gate -------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["slab", "slab_arcl", "slab_f32", "slab_damped", "slab_sg",
-                                  "slab_compensated", "solovev", "slab_eq_grad"])
-def test_gate(name):
-    takes = name in ("slab", "slab_arcl", "slab_f32")
+GATE_CASES = ["slab", "slab_arcl", "slab_f32", "slab_damped", "slab_sg", "slab_compensated",
+              "solovev", "slab_eq_grad"]
+
+
+def _gate_case(name):
+    """(whether the gate takes it, cfg, params, v0, status0, pwr_wt) of a
+    gate case, on the CPU at 3 steps."""
     text = {"slab_damped": tex.SLAB_ECH_DAMPED, "slab_sg": SLAB_SG,
             "solovev": tex.SOLOVEV_ECH_90GHZ,
             "slab_eq_grad": tex.SLAB_ECH_90GHZ.replace(EQ_GRAD, EQ_GRAD.replace("false", "true"))
@@ -344,16 +359,38 @@ def test_gate(name):
         "slab_arcl": dict(ray_param="arcl"), "slab_compensated": dict(compensated_sum=True),
         "slab_sg": dict(sg_scan_substeps=2), "solovev": dict(sg_scan_substeps=3)
     }.get(name, {}))
+    return name in ("slab", "slab_arcl", "slab_f32"), cfg, params, v0, st, pwr
+
+
+@pytest.mark.parametrize("name", GATE_CASES)
+def test_gate(name):
+    takes, cfg, params, v0, st, pwr = _gate_case(name)
     assert slab_vjp.takes(cfg, "cuda") == slab_vjp.takes(cfg, torch.device("cuda", 0)) == takes
     assert not slab_vjp.takes(cfg, "cpu")
-    # on the CPU the piece is the generic one, and a run launches nothing
-    before = slab_vjp.LAUNCHES
+    # on the CPU the pieces are the generic ones, and a run launches nothing
+    before = slab_vjp.LAUNCHES, slab_vjp.STEP_LAUNCHES
     p = _with_grad(params)
     loop = ga.StaticAdjoint(cfg, p, v0, st)
-    assert loop.slab is None and loop.functions()["vjp"] == loop.vjp
+    assert loop.slab is None and loop.functions() == {"step": loop.step, "vjp": loop.vjp}
     loss = _weighted_loss(ga.trace_batch_static_adjoint(cfg, p, v0, st, pwr, loop=loop))
     torch.autograd.grad(loss, [t for t in tree_leaves(p) if t.is_floating_point()])
-    assert slab_vjp.LAUNCHES == before
+    assert (slab_vjp.LAUNCHES, slab_vjp.STEP_LAUNCHES) == before
     if not takes:
         with pytest.raises(ValueError, match="slab VJP"):
             slab_vjp.SlabVJP(None, loop)
+
+
+@pytest.mark.parametrize("name", GATE_CASES)
+def test_opened_gate_takes_both_kernels(host_lib, monkeypatch, name):
+    """Where the gate opens (here the host build standing for the card's
+    library), the loop's step and VJP pieces are both the kernels'; where
+    it does not, both are the generic pieces."""
+    takes, cfg, params, v0, st, _ = _gate_case(name)
+    gate = slab_vjp.takes
+    monkeypatch.setattr(slab_vjp, "takes", lambda cfg_, dev: gate(cfg_, "cuda"))
+    monkeypatch.setattr(slab_vjp, "load_library", lambda dtype, ns: (host_lib, ""))
+    opened = ga.StaticAdjoint(cfg, _with_grad(params), v0, st)
+    assert (opened.slab is not None) == takes
+    assert opened.functions() == (
+        {"step": opened.step_slab, "vjp": opened.vjp_slab} if takes
+        else {"step": opened.step, "vjp": opened.vjp})
