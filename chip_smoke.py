@@ -727,7 +727,7 @@ def kernel_phases(run):
     """Phases 2-8: the kernels, built from the sources in the checkout,
     on the undamped and the damped main paths.  Returns what the kernels
     line reports."""
-    from rays_tpu_torch import examples, run as runner
+    from rays_tpu_torch import examples, native, run as runner
     from rays_tpu_torch.core.types import tree_to
     from rays_tpu_torch.results.netcdf import read_results_nc
     from rays_tpu_torch.tracing import fused_slab
@@ -759,7 +759,8 @@ def kernel_phases(run):
     occupancy = {}
     for variant in (0, 2):
         for dt, name in ((torch.float64, "f64"), (torch.float32, "f32")):
-            occ = fused_slab.occupancy(libs[variant][0], dt, 2)
+            occ = native.occupancy(libs[variant][0].rays_slab_occupancy,
+                                   int(dt == torch.float64), 2)
             require(occ["blocks_per_sm"] >= 1, f"variant {variant} {name} cannot launch: {occ}")
             occupancy[variant, dt] = occ
             print(f"phase 2 occupancy: variant {variant} {name} S=2: {occ['registers']} "
@@ -1481,7 +1482,7 @@ def slab_vjp_phase(run, rays=None, steps=None):
     own count.  Returns the kernels line's row."""
     import functools
 
-    from rays_tpu_torch import examples
+    from rays_tpu_torch import examples, native
     from rays_tpu_torch.core.types import tree_leaves, tree_map
     from rays_tpu_torch.tracing import graphed, graphed_adjoint as ga, slab_vjp, trace
     from rays_tpu_torch.utils import op_rates, spans
@@ -1493,7 +1494,7 @@ def slab_vjp_phase(run, rays=None, steps=None):
     ptxas = re.search(r"slab_rk4_vjp_kernel.*?(\d+) bytes spill stores.*?Used (\d+) registers",
                       log, re.S)
     require(ptxas, f"no sm_90a ptxas report in the slab VJP's build log:\n{log}")
-    occ = slab_vjp.occupancy(lib)
+    occ = native.occupancy(lib.rays_slab_vjp_occupancy)
     require(occ["blocks_per_sm"] >= 1, f"the slab VJP cannot launch: {occ}")
     print(f"phase 36 build: slab_rk4_vjp f64 S=2 loaded in {time.perf_counter() - t0:.1f} s "
           f"(built in phase 1); ptxas {ptxas[2]} registers, {ptxas[1]} B spilled; granted "
@@ -1642,7 +1643,7 @@ def slab_step_phase(run, rays=None, steps=None):
     row."""
     import functools
 
-    from rays_tpu_torch import examples
+    from rays_tpu_torch import examples, native
     from rays_tpu_torch.core.types import tree_leaves, tree_map
     from rays_tpu_torch.tracing import graphed, graphed_adjoint as ga, slab_vjp, trace
     from rays_tpu_torch.utils import op_rates, spans
@@ -1655,7 +1656,7 @@ def slab_step_phase(run, rays=None, steps=None):
         m = re.search(kernel + r".*?(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S)
         require(m, f"no sm_90a ptxas report of {kernel} in the library's build log:\n{log}")
         reports[kernel] = (int(m[2]), int(m[1]))
-    occ = slab_vjp.occupancy(lib, "step")
+    occ = native.occupancy(lib.rays_slab_step_occupancy)
     require(occ["blocks_per_sm"] >= 1, f"the slab step cannot launch: {occ}")
     (regs, spill), (vjp_regs, vjp_spill) = reports.values()
     print(f"phase 37 build: slab_rk4_step_kernel f64 S=2: ptxas {regs} registers, {spill} B "

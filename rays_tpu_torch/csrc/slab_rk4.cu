@@ -19,12 +19,13 @@
 // rays_slab_occupancy reports what the runtime grants.
 //
 // Built by tracing/fused_slab.py with nvcc into a shared library with a
-// plain C interface and called through ctypes: each launcher takes the run
-// constants by pointer, fills their derived fields (rays::derive_run),
-// passes them to the kernel by value, launches on the caller's stream and
-// returns cudaGetLastError().  One library holds one damping variant
-// (-DRAYS_DAMPING=0, 1 or 2, rays::DAMP_*) for S = 1..6 at float32 and
-// float64; the three libraries build side by side.
+// plain C interface and called through ctypes: each launcher takes the
+// packed run constants and the model codes in host memory, loads them
+// with their derived fields (rays::load_run), passes them to the kernel by
+// value, launches on the caller's stream and returns cudaGetLastError().
+// One library holds one damping variant (-DRAYS_DAMPING=0, 1 or 2,
+// rays::DAMP_*) for S = 1..6 at float32 and float64; the three libraries
+// build side by side.
 
 #include <cuda_runtime.h>
 
@@ -76,29 +77,41 @@ slab_rk4_kernel(const rays::SlabRun<T> run, int64_t B, const T* __restrict__ v0,
                               end_res_out, max_res_out, traj, traj_res);
 }
 
-template <typename T>
-int launch(const rays::SlabRun<T>* run, int nspecies, const T* v0, const int32_t* status0,
-           int64_t B, T* v_out, int32_t* stop_out, int32_t* npoints_out, T* end_res_out,
-           T* max_res_out, T* traj, T* traj_res, void* stream) {
-  rays::SlabRun<T> derived = *run;
-  rays::derive_run(derived);
+template <typename T, int S>
+int launch_s(const T* packed, const int32_t* codes, int32_t nstep_max, int32_t save_trajectory,
+             const T* v0, const int32_t* status0, int64_t B, T* v_out, int32_t* stop_out,
+             int32_t* npoints_out, T* end_res_out, T* max_res_out, T* traj, T* traj_res,
+             cudaStream_t stream) {
+  rays::SlabRun<T> run{};
+  rays::load_run<T, S>(packed, codes, run);
+  run.nstep_max = nstep_max;
+  run.save_trajectory = save_trajectory;
   const dim3 grid((unsigned)((B + kThreads - 1) / kThreads));
+  slab_rk4_kernel<T, S, RAYS_DAMPING><<<grid, kThreads, 0, stream>>>(
+      run, B, v0, status0, v_out, stop_out, npoints_out, end_res_out, max_res_out, traj,
+      traj_res);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const T* packed, const int32_t* codes, int nspecies, int32_t nstep_max,
+           int32_t save_trajectory, const T* v0, const int32_t* status0, int64_t B, T* v_out,
+           int32_t* stop_out, int32_t* npoints_out, T* end_res_out, T* max_res_out, T* traj,
+           T* traj_res, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RAYS_LAUNCH(S)                                                                    \
-  slab_rk4_kernel<T, S, RAYS_DAMPING><<<grid, kThreads, 0, st>>>(                      \
-      derived, B, v0, status0, v_out, stop_out, npoints_out, end_res_out, max_res_out, traj, \
-      traj_res)
+#define RAYS_LAUNCH(S)                                                                      \
+  launch_s<T, S>(packed, codes, nstep_max, save_trajectory, v0, status0, B, v_out, stop_out, \
+                 npoints_out, end_res_out, max_res_out, traj, traj_res, st)
   switch (nspecies) {
-    case 1: RAYS_LAUNCH(1); break;
-    case 2: RAYS_LAUNCH(2); break;
-    case 3: RAYS_LAUNCH(3); break;
-    case 4: RAYS_LAUNCH(4); break;
-    case 5: RAYS_LAUNCH(5); break;
-    case 6: RAYS_LAUNCH(6); break;
+    case 1: return RAYS_LAUNCH(1);
+    case 2: return RAYS_LAUNCH(2);
+    case 3: return RAYS_LAUNCH(3);
+    case 4: return RAYS_LAUNCH(4);
+    case 5: return RAYS_LAUNCH(5);
+    case 6: return RAYS_LAUNCH(6);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef RAYS_LAUNCH
-  return (int)cudaGetLastError();
 }
 
 // out[0..3]: threads per block, the blocks of them that the runtime lets
@@ -136,23 +149,26 @@ int occupancy(int nspecies, int* out) {
 extern "C" {
 
 int rays_slab_damping() { return RAYS_DAMPING; }
-int rays_slab_run_size_f64() { return (int)sizeof(rays::SlabRun<double>); }
-int rays_slab_run_size_f32() { return (int)sizeof(rays::SlabRun<float>); }
+const char* rays_slab_row_names() { return rays::row_names(); }
 
-int rays_slab_rk4_f64(const rays::SlabRun<double>* run, int nspecies, const double* v0,
+int rays_slab_rk4_f64(const double* packed, const int32_t* codes, int nspecies,
+                      int32_t nstep_max, int32_t save_trajectory, const double* v0,
                       const int32_t* status0, int64_t B, double* v_out, int32_t* stop_out,
                       int32_t* npoints_out, double* end_res_out, double* max_res_out,
                       double* traj, double* traj_res, void* stream) {
-  return launch<double>(run, nspecies, v0, status0, B, v_out, stop_out, npoints_out,
-                        end_res_out, max_res_out, traj, traj_res, stream);
+  return launch<double>(packed, codes, nspecies, nstep_max, save_trajectory, v0, status0, B,
+                        v_out, stop_out, npoints_out, end_res_out, max_res_out, traj, traj_res,
+                        stream);
 }
 
-int rays_slab_rk4_f32(const rays::SlabRun<float>* run, int nspecies, const float* v0,
+int rays_slab_rk4_f32(const float* packed, const int32_t* codes, int nspecies,
+                      int32_t nstep_max, int32_t save_trajectory, const float* v0,
                       const int32_t* status0, int64_t B, float* v_out, int32_t* stop_out,
                       int32_t* npoints_out, float* end_res_out, float* max_res_out,
                       float* traj, float* traj_res, void* stream) {
-  return launch<float>(run, nspecies, v0, status0, B, v_out, stop_out, npoints_out,
-                       end_res_out, max_res_out, traj, traj_res, stream);
+  return launch<float>(packed, codes, nspecies, nstep_max, save_trajectory, v0, status0, B,
+                       v_out, stop_out, npoints_out, end_res_out, max_res_out, traj, traj_res,
+                       stream);
 }
 
 // occupancy of the instantiation that a launch at this precision and

@@ -25,7 +25,7 @@
 // latency.  What the design does about it:
 //  - Divisions are subroutines of a dozen or more dependent instructions,
 //    so everything that divides by a constant of the run multiplies by a
-//    reciprocal that derive_run() computed once on the host (SlabRun's
+//    reciprocal that load_run() computed once on the host (SlabRun's
 //    second block of fields), and groups that share a denominator (|B|,
 //    dD/dw or |dD/dk|, the Z-function's |Z|^2, ...) take one reciprocal.
 //    Two divisions per evaluation are left (1/|B| and 1/(dD/dw) or
@@ -113,9 +113,55 @@ RAYS_HD constexpr bool slot_moves(int j) {
   return j < 4 || j == 6 || (DAMP != DAMP_NONE && j == 7) || (DAMP == DAMP_ECH_MULTI && j == 8);
 }
 
-// Run constants, passed to the kernel by value.  The first block is read
-// from Params on the host (tracing/fused_slab.py::_run_struct mirrors the
-// field order); the second is filled from the first by derive_run().
+// The packed run constants: the Params values that a slab run reads, one
+// row each (ms: the first species', the electrons'), and those per species
+// S rows each, in this order (tracing/fused_slab.py packs them from tables
+// of the same names, which its bind checks against rays_slab_row_names).
+// The slab VJP differentiates the first two lists, and its accumulator has
+// their rows; the step kernel and B1 read all four.
+#define RAYS_DIFF_ROWS(X)                                                                   \
+  X(rmaj) X(rmin) X(x0) X(by0) X(bz0) X(lby_shear_scale) X(lbz_scale) X(dbzdx) X(ln_scale) \
+  X(alphan1) X(omgrf) X(omgrf_ref) X(k0) X(ds)
+#define RAYS_DIFF_SPECIES_ROWS(X) X(alpha_coef) X(gamma_coef) X(n0s)
+#define RAYS_FWD_ROWS(X)                                                                   \
+  X(xmin) X(xmax) X(ymin) X(ymax) X(zmin) X(zmax) X(s_max) X(dispersion_resid_limit)     \
+  X(lt_scale) X(dtdx) X(total_damping_limit) X(ms)
+#define RAYS_FWD_SPECIES_ROWS(X) X(t0s) X(alphat1) X(alphat2) X(t_min)
+
+// R_<name>: a scalar's row within its list, or a species field's index
+// among its list's fields (field f of species s is row f * S + s of them)
+#define RAYS_ROW_ENUM(name) R_##name,
+enum : int { RAYS_DIFF_ROWS(RAYS_ROW_ENUM) N_DIFF_ROWS };
+enum : int { RAYS_DIFF_SPECIES_ROWS(RAYS_ROW_ENUM) N_DIFF_SPECIES };
+enum : int { RAYS_FWD_ROWS(RAYS_ROW_ENUM) N_FWD_ROWS };
+enum : int { RAYS_FWD_SPECIES_ROWS(RAYS_ROW_ENUM) N_FWD_SPECIES };
+#undef RAYS_ROW_ENUM
+
+// rows of the first two lists: the slab VJP's accumulator
+template <int S>
+RAYS_HD constexpr int vjp_rows() { return N_DIFF_ROWS + N_DIFF_SPECIES * S; }
+// the row of species s of a field of the second list
+template <int S>
+RAYS_HD constexpr int diff_species_row(int field, int s) { return N_DIFF_ROWS + field * S + s; }
+
+// the row names, the four lists apart by " | "
+#define RAYS_ROW_NAME(name) " " #name
+inline const char* row_names() {
+  return RAYS_DIFF_ROWS(RAYS_ROW_NAME) " |" RAYS_DIFF_SPECIES_ROWS(RAYS_ROW_NAME)
+      " |" RAYS_FWD_ROWS(RAYS_ROW_NAME) " |" RAYS_FWD_SPECIES_ROWS(RAYS_ROW_NAME);
+}
+#undef RAYS_ROW_NAME
+
+// The codes of a run's profile models and ray parameter, in this order
+// (tracing/fused_slab.py::model_codes): By, Bz, density, time parameter,
+// then the temperature model of each species.
+enum : int { C_BY = 0, C_BZ, C_DENS, C_TIME, C_T, N_CODES = C_T + MAX_SPECIES };
+
+constexpr double kClight = 2.997930e8;  // constants.CLIGHT
+
+// Run constants, in registers or passed to a kernel by value.  The first
+// block holds the rows of the packed vector and c, the second what
+// load_run derives from them.
 template <typename T>
 struct SlabRun {
   T xmin, xmax, ymin, ymax, zmin, zmax;
@@ -124,7 +170,7 @@ struct SlabRun {
   T alpha_coef[MAX_SPECIES], gamma_coef[MAX_SPECIES], n0s[MAX_SPECIES];
   T t0s[MAX_SPECIES], alphat1[MAX_SPECIES], alphat2[MAX_SPECIES], t_min[MAX_SPECIES];
   T omgrf, omgrf_ref, k0, ds, s_max, dispersion_resid_limit;
-  T total_damping_limit, ms0, clight;  // damping: limit, electron mass, c
+  T total_damping_limit, ms, clight;  // damping: limit, electron mass, c
   // derived: reciprocals and products of the fields above
   T inv_k0, inv_k0sq, inv_omgrf, inv_rmaj, inv_rmin, inv_lby, inv_lbz, inv_ln, inv_lt;
   T gauss_coef;                // -3 alphan1 / rmin^2
@@ -138,12 +184,38 @@ struct SlabRun {
   int32_t t_model[MAX_SPECIES];
 };
 
-// Fill the derived fields, in the kernel's own precision.  The launchers
-// call it on their copy of the struct, so a caller sets only the first
-// block.  A scale length that its model does not use may be 0: its
-// reciprocal is then inf and is never read.
-template <typename T>
-inline void derive_run(SlabRun<T>& r) {
+// The run constants of S species from the packed vector pv (the four row
+// lists) and the model codes (N_CODES), and the derived fields from them, in
+// the working precision.  B1's launchers call it on the host, the step and
+// VJP kernels on the device (a captured launch reads each run's values).
+// nstep_max and save_trajectory are B1's, set by its launchers; the fields
+// of species past S stay as they were.  A scale length that its model does
+// not use may be 0: its reciprocal is then inf and is never read.
+template <typename T, int S>
+RAYS_HD void load_run(const T* pv, const int32_t* codes, SlabRun<T>& r) {
+  const T* pf = pv + vjp_rows<S>();
+#define RAYS_LOAD(name) r.name = pv[R_##name];
+  RAYS_DIFF_ROWS(RAYS_LOAD)
+#undef RAYS_LOAD
+#define RAYS_LOAD(name) r.name = pf[R_##name];
+  RAYS_FWD_ROWS(RAYS_LOAD)
+#undef RAYS_LOAD
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+#define RAYS_LOAD(name) r.name[s] = pv[diff_species_row<S>(R_##name, s)];
+    RAYS_DIFF_SPECIES_ROWS(RAYS_LOAD)
+#undef RAYS_LOAD
+#define RAYS_LOAD(name) r.name[s] = pf[N_FWD_ROWS + R_##name * S + s];
+    RAYS_FWD_SPECIES_ROWS(RAYS_LOAD)
+#undef RAYS_LOAD
+    r.t_model[s] = codes[C_T + s];
+  }
+  r.by_model = codes[C_BY];
+  r.bz_model = codes[C_BZ];
+  r.dens_model = codes[C_DENS];
+  r.time_param = codes[C_TIME];
+  r.clight = T(kClight);
+
   const T wratio = r.omgrf_ref / r.omgrf;
   r.inv_k0 = T(1) / r.k0;
   r.inv_k0sq = T(1) / (r.k0 * r.k0);
@@ -158,9 +230,10 @@ inline void derive_run(SlabRun<T>& r) {
   r.half_ds = r.ds / T(2);
   r.sixth_ds = r.ds / T(6);
   r.omgc_coef = r.gamma_coef[0] * r.omgrf_ref;
-  r.two_over_ms0 = T(2) / r.ms0;
+  r.two_over_ms0 = T(2) / r.ms;
   r.inv_clight = T(1) / r.clight;
-  for (int s = 0; s < MAX_SPECIES; ++s) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
     r.alpha_w2[s] = r.alpha_coef[s] * (wratio * wratio);
     r.gamma_w[s] = r.gamma_coef[s] * wratio;
     r.dn_linear[s] = r.n0s[s] / r.ln_scale;

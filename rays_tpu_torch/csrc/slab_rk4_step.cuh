@@ -24,13 +24,12 @@
 // and written back unchanged.
 //
 // Params come from the packed device vector that the slab VJP keeps
-// (tracing/slab_vjp.py: its P_* rows, then the F_* rows below that only
-// the forward reads), and derive_run's fields are derived here, so a
-// captured launch answers for the Params of each run and nothing is read
-// on the host.  What bounds it on an H100 is what bounds the slab kernel:
-// the arithmetic of four evaluations and the latency of its dependent
-// chain; the carry and the stack row are ~0.3 KB a ray, microseconds at
-// the card's memory rate.
+// (tracing/slab_vjp.py, in slab_rk4.cuh's layout), and load_run derives
+// their fields here, so a captured launch answers for the Params of each
+// run and nothing is read on the host.  What bounds it on an H100 is what
+// bounds the slab kernel: the arithmetic of four evaluations and the
+// latency of its dependent chain; the carry and the stack row are ~0.3 KB
+// a ray, microseconds at the card's memory rate.
 
 #pragma once
 
@@ -38,22 +37,11 @@
 
 namespace rays {
 
-// Rows of the packed Params vector past the VJP's vjp_rows<S>(): the run
-// values that only the forward reads (point_err's bounds and
-// temperatures, step_start's s_max and check_save's residual limit).  The
-// species rows follow: t0s[s] at F_SPECIES + s, alphat1[s] at F_SPECIES +
-// S + s, alphat2[s] at F_SPECIES + 2 S + s, t_min[s] at F_SPECIES + 3 S +
-// s (tracing/slab_vjp.py mirrors this).
-enum : int {
-  F_XMIN = 0, F_XMAX, F_YMIN, F_YMAX, F_ZMIN, F_ZMAX, F_S_MAX, F_RESID_LIMIT, F_LT, F_DTDX,
-  F_SPECIES
-};
-
 // What one launch reads and writes; the wrapper fills it once per loop
 // (the buffers are static) and passes it by pointer, the launcher to the
 // kernel by value.  The carry's buffers are (B, ...), the stacks (nstep_max,
 // B, ...); traj (B, nstep_max + 1, 7) and resid (B, nstep_max + 1), or null
-// without trajectories.
+// without trajectories; params: the packed run constants (slab_rk4.cuh).
 template <typename T>
 struct SlabStepArgs {
   const T* params;
@@ -77,35 +65,9 @@ struct SlabStepArgs {
   T* traj;
   T* resid;
   int64_t B;
-  int32_t nstep_max, by_model, bz_model, dens_model, time_param, pad;
-  int32_t t_model[MAX_SPECIES];
+  int32_t nstep_max;
+  int32_t codes[N_CODES];
 };
-
-// load_run's fields, and those of point_err, step_start and check_save.
-template <typename T, int S>
-RAYS_HD void load_step_run(const SlabStepArgs<T>& a, SlabRun<T>& r) {
-  load_run<T, S>(a.params, a.by_model, a.bz_model, a.dens_model, a.time_param, r);
-  const T* pf = a.params + vjp_rows<S>();
-  r.xmin = pf[F_XMIN];
-  r.xmax = pf[F_XMAX];
-  r.ymin = pf[F_YMIN];
-  r.ymax = pf[F_YMAX];
-  r.zmin = pf[F_ZMIN];
-  r.zmax = pf[F_ZMAX];
-  r.s_max = pf[F_S_MAX];
-  r.dispersion_resid_limit = pf[F_RESID_LIMIT];
-  r.lt_scale = pf[F_LT];
-  r.dtdx = pf[F_DTDX];
-  r.inv_lt = T(1) / r.lt_scale;
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    r.t0s[s] = pf[F_SPECIES + s];
-    r.alphat1[s] = pf[F_SPECIES + S + s];
-    r.alphat2[s] = pf[F_SPECIES + 2 * S + s];
-    r.t_min[s] = pf[F_SPECIES + 3 * S + s];
-    r.t_model[s] = a.t_model[s];
-  }
-}
 
 // Outer step k (read from a.k) for ray i (header comment).
 template <typename T, int S>
@@ -141,7 +103,7 @@ RAYS_HD void step_fwd(const SlabStepArgs<T>& a, int64_t i) {
   T resid = T(0);
   if (status == ST_OK) {
     SlabRun<T> r{};
-    load_step_run<T, S>(a, r);
+    load_run<T, S>(a.params, a.codes, r);
     // step_start: sout = (k + 1) ds past s_max stops the ray
     if (T(k + 1) * r.ds > r.s_max) {
       status = ST_SOUT_GT_SMAX;

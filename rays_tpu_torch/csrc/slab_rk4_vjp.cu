@@ -92,6 +92,7 @@ extern "C" {
 
 int rays_slab_vjp_species() { return RAYS_VJP_SPECIES; }
 int rays_slab_vjp_is_f64() { return RAYS_VJP_F64; }
+const char* rays_slab_row_names() { return rays::row_names(); }
 int rays_slab_vjp_args_size_f64() { return (int)sizeof(rays::SlabVjpArgs<double>); }
 int rays_slab_vjp_args_size_f32() { return (int)sizeof(rays::SlabVjpArgs<float>); }
 

@@ -30,8 +30,8 @@
 // A ray that did not step passes its cotangents through and computes no
 // derivative.  Params come from a packed device vector at every launch (an
 // inverse problem changes them at every iteration, and a captured launch
-// must answer for each); the reciprocals and coefficients of derive_run are
-// derived here from the raw values and differentiated through, so the
+// must answer for each); load_run derives the reciprocals and coefficients
+// here from the raw values, and they are differentiated through, so the
 // accumulators hold cotangents of Params values.
 //
 // The evaluation's RHS already holds the first derivatives of the
@@ -131,23 +131,12 @@ RAYS_HD Dual<T> operator*(const Dual<T>& a, const Dual<T>& b) {
 RAYS_HD int as_step(double k) { return (int)k; }
 RAYS_HD int as_step(float k) { return (int)k; }
 
-// Rows of the packed Params vector and of the accumulators: the Params
-// values an undamped slab step reads differentiably.  The species rows
-// follow: alpha_coef[s] at P_SPECIES + s, gamma_coef[s] at P_SPECIES + S +
-// s, n0s[s] at P_SPECIES + 2 S + s (tracing/slab_vjp.py mirrors this).
-enum : int {
-  P_RMAJ = 0, P_RMIN, P_X0, P_BY0, P_BZ0, P_LBY, P_LBZ, P_DBZDX, P_LN, P_ALPHAN1,
-  P_OMGRF, P_OMGRF_REF, P_K0, P_DS, P_SPECIES
-};
-
-template <int S>
-RAYS_HD constexpr int vjp_rows() { return P_SPECIES + 3 * S; }
-
 // What one launch reads and writes; the wrapper fills it once per loop
 // (the buffers are static) and passes it by pointer, the launcher to the
 // kernel by value.  Stacks are (nstep_max, B, ...), the carry's (B, ...);
 // traj_cot (B, nstep_max + 1, 7) and resid_cot (B, nstep_max + 1), or null
-// without trajectories; acc (vjp_rows, B).
+// without trajectories; params: the packed run constants (slab_rk4.cuh);
+// acc (vjp_rows, B).
 template <typename T>
 struct SlabVjpArgs {
   const T* params;
@@ -167,7 +156,8 @@ struct SlabVjpArgs {
   const T* resid_cot;
   T* acc;
   int64_t B;
-  int32_t nstep_max, by_model, bz_model, dens_model, time_param, pad;
+  int32_t nstep_max;
+  int32_t codes[N_CODES];
 };
 
 // Cotangents of the run values one step reads, raw and derived
@@ -177,56 +167,6 @@ struct RunCot {
   T by0, bz0, dbzdx, x0, inv_rmaj, inv_lby, inv_lbz, inv_ln, gauss_coef, inv_k0, inv_omgrf, ds;
   T alpha_w2[S], gamma_w[S], dn_linear[S], n0s[S];
 };
-
-// The run values from the packed vector pv (P_* rows), and derive_run's
-// derived fields that a step reads, by its formulas.  The fields a step
-// does not read stay as they were (the VJP leaves the bounds and
-// temperatures of point_err zero: their status is dead code there).
-template <typename T, int S>
-RAYS_HD void load_run(const T* pv, int32_t by_model, int32_t bz_model, int32_t dens_model,
-                      int32_t time_param, SlabRun<T>& r) {
-  r.rmaj = pv[P_RMAJ];
-  r.rmin = pv[P_RMIN];
-  r.x0 = pv[P_X0];
-  r.by0 = pv[P_BY0];
-  r.bz0 = pv[P_BZ0];
-  r.lby_shear_scale = pv[P_LBY];
-  r.lbz_scale = pv[P_LBZ];
-  r.dbzdx = pv[P_DBZDX];
-  r.ln_scale = pv[P_LN];
-  r.alphan1 = pv[P_ALPHAN1];
-  r.omgrf = pv[P_OMGRF];
-  r.omgrf_ref = pv[P_OMGRF_REF];
-  r.k0 = pv[P_K0];
-  r.ds = pv[P_DS];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    r.alpha_coef[s] = pv[P_SPECIES + s];
-    r.gamma_coef[s] = pv[P_SPECIES + S + s];
-    r.n0s[s] = pv[P_SPECIES + 2 * S + s];
-  }
-  r.by_model = by_model;
-  r.bz_model = bz_model;
-  r.dens_model = dens_model;
-  r.time_param = time_param;
-  const T wratio = r.omgrf_ref / r.omgrf;
-  r.inv_k0 = T(1) / r.k0;
-  r.inv_omgrf = T(1) / r.omgrf;
-  r.inv_rmaj = T(1) / r.rmaj;
-  r.inv_rmin = T(1) / r.rmin;
-  r.inv_lby = T(1) / r.lby_shear_scale;
-  r.inv_lbz = T(1) / r.lbz_scale;
-  r.inv_ln = T(1) / r.ln_scale;
-  r.gauss_coef = T(-3) * r.alphan1 / (r.rmin * r.rmin);
-  r.half_ds = r.ds / T(2);
-  r.sixth_ds = r.ds / T(6);
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    r.alpha_w2[s] = r.alpha_coef[s] * (wratio * wratio);
-    r.gamma_w[s] = r.gamma_coef[s] * wratio;
-    r.dn_linear[s] = r.n0s[s] / r.ln_scale;
-  }
-}
 
 // RK4 stages 2-4 of one outer step from the state v and the carried first
 // stage f1 (tracing/rk4.rk4_step_carried, in trace_one's order of
@@ -741,7 +681,7 @@ RAYS_HD void eval_point_vjp(const SlabRun<T>& r, bool again, T x, T kx, T ky, T 
 }
 
 // The accumulator rows of ray i: the run values' cotangents of one step
-// through derive_run's formulas to the raw Params values, added into the
+// through load_run's formulas to the raw Params values, added into the
 // rows that the configuration's profile models read (the others are never
 // written, so they stay zero).
 template <typename T, int S>
@@ -752,37 +692,39 @@ RAYS_HD void add_param_cots(const SlabRun<T>& r, const RunCot<T, S>& gr, T* acc,
   T g_wr = T(0);
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    row[(P_SPECIES + s) * B] += gr.alpha_w2[s] * (wr * wr);
-    row[(P_SPECIES + S + s) * B] += gr.gamma_w[s] * wr;
+    row[diff_species_row<S>(R_alpha_coef, s) * B] += gr.alpha_w2[s] * (wr * wr);
+    row[diff_species_row<S>(R_gamma_coef, s) * B] += gr.gamma_w[s] * wr;
     g_wr += gr.alpha_w2[s] * r.alpha_coef[s] * T(2) * wr + gr.gamma_w[s] * r.gamma_coef[s];
     T gn = gr.n0s[s];
     if (r.dens_model == N_LINEAR) gn += gr.dn_linear[s] * r.inv_ln;
-    row[(P_SPECIES + 2 * S + s) * B] += gn;
+    row[diff_species_row<S>(R_n0s, s) * B] += gn;
   }
-  row[P_OMGRF * B] += -gr.inv_omgrf * r.inv_omgrf * r.inv_omgrf - g_wr * wr * r.inv_omgrf;
-  row[P_OMGRF_REF * B] += g_wr * r.inv_omgrf;
-  row[P_K0 * B] += -gr.inv_k0 * r.inv_k0 * r.inv_k0;
-  row[P_DS * B] += gr.ds;
-  if (r.by_model != BY_ZERO) row[P_BY0 * B] += gr.by0;
-  if (r.by_model == BY_LINEAR_SHEAR) row[P_LBY * B] += -gr.inv_lby * r.inv_lby * r.inv_lby;
-  if (r.bz_model != BZ_ZERO) row[P_BZ0 * B] += gr.bz0;
-  if (r.bz_model == BZ_LINEAR) row[P_LBZ * B] += -gr.inv_lbz * r.inv_lbz * r.inv_lbz;
+  row[R_omgrf * B] += -gr.inv_omgrf * r.inv_omgrf * r.inv_omgrf - g_wr * wr * r.inv_omgrf;
+  row[R_omgrf_ref * B] += g_wr * r.inv_omgrf;
+  row[R_k0 * B] += -gr.inv_k0 * r.inv_k0 * r.inv_k0;
+  row[R_ds * B] += gr.ds;
+  if (r.by_model != BY_ZERO) row[R_by0 * B] += gr.by0;
+  if (r.by_model == BY_LINEAR_SHEAR)
+    row[R_lby_shear_scale * B] += -gr.inv_lby * r.inv_lby * r.inv_lby;
+  if (r.bz_model != BZ_ZERO) row[R_bz0 * B] += gr.bz0;
+  if (r.bz_model == BZ_LINEAR)
+    row[R_lbz_scale * B] += -gr.inv_lbz * r.inv_lbz * r.inv_lbz;
   if (r.bz_model == BZ_LINEAR_2) {
-    row[P_DBZDX * B] += gr.dbzdx;
-    row[P_X0 * B] += gr.x0;
+    row[R_dbzdx * B] += gr.dbzdx;
+    row[R_x0 * B] += gr.x0;
   }
   if (r.by_model == BY_TOROID || r.bz_model == BZ_TOROID)
-    row[P_RMAJ * B] += -gr.inv_rmaj * r.inv_rmaj * r.inv_rmaj;
+    row[R_rmaj * B] += -gr.inv_rmaj * r.inv_rmaj * r.inv_rmaj;
   if (r.dens_model == N_LINEAR) {
     T g_ln = -gr.inv_ln * r.inv_ln * r.inv_ln;
 #pragma unroll
     for (int s = 0; s < S; ++s) g_ln -= gr.dn_linear[s] * r.dn_linear[s] * r.inv_ln;
-    row[P_LN * B] += g_ln;
+    row[R_ln_scale * B] += g_ln;
   }
   if (r.dens_model == N_GAUSSIAN) {
     // gauss_coef = -3 alphan1 / rmin^2
-    row[P_ALPHAN1 * B] += gr.gauss_coef * T(-3) * r.inv_rmin * r.inv_rmin;
-    row[P_RMIN * B] += gr.gauss_coef * T(-2) * r.gauss_coef * r.inv_rmin;
+    row[R_alphan1 * B] += gr.gauss_coef * T(-3) * r.inv_rmin * r.inv_rmin;
+    row[R_rmin * B] += gr.gauss_coef * T(-2) * r.gauss_coef * r.inv_rmin;
   }
 }
 
@@ -799,7 +741,7 @@ RAYS_HD void step_vjp(const SlabVjpArgs<T>& a, int64_t i) {
   if (stepped == 0) return;  // every cotangent passes through
 
   SlabRun<T> r{};
-  load_run<T, S>(a.params, a.by_model, a.bz_model, a.dens_model, a.time_param, r);
+  load_run<T, S>(a.params, a.codes, r);
   T v[NV], f1[NV];
 #pragma unroll
   for (int j = 0; j < NV; ++j) {

@@ -54,6 +54,7 @@ int run_all(const Args<T>& args, int nspecies) {
 
 extern "C" {
 
+const char* rays_slab_row_names() { return rays::row_names(); }
 int rays_slab_vjp_args_size_f64() { return (int)sizeof(rays::SlabVjpArgs<double>); }
 int rays_slab_vjp_args_size_f32() { return (int)sizeof(rays::SlabVjpArgs<float>); }
 

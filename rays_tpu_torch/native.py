@@ -7,18 +7,66 @@ sources and its compiler command, so a changed source or flag rebuilds and
 an unchanged one is reused.  Libraries asked for together build side by
 side, one compiler process each, all started at once.  The compiler's
 output is kept beside the library (``.log``): for nvcc it holds the
-``-Xptxas -v`` register report.
+``-Xptxas -v`` register report.  ``nvcc`` and ``gxx`` find the compilers,
+``NVCC_FLAGS`` and ``HOST_FLAGS`` are the flags every kernel library and
+every host build of a kernel body shares, and ``occupancy`` reads what the
+CUDA runtime grants a built kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+
+# Hopper (sm_90a) shared libraries with the ptxas register report
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the host builds of the kernel bodies: no contraction into fused
+# multiply-adds, so their arithmetic is the plain code's, operation by operation
+HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
+
+
+def nvcc():
+    """The CUDA compiler's path; raises RuntimeError where there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def gxx():
+    """The host C++ compiler's path; raises RuntimeError where there is none."""
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host builds of the kernel bodies need it")
+    return found
+
+
+def occupancy(query, *args):
+    """What the CUDA runtime grants one kernel instantiation, through a
+    library's query ``query(*args, int out[4])`` (int arguments; it writes
+    threads per block, blocks per SM, registers, local bytes per thread and
+    returns a CUDA error code): {threads, blocks_per_sm, warps_per_sm,
+    registers, local_bytes}."""
+    out = (ctypes.c_int * 4)()
+    query.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    query.restype = ctypes.c_int
+    rc = query(*args, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"{query.__name__} failed with CUDA error {rc}")
+    threads, blocks, regs, local = out
+    return {"threads": threads, "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
+            "registers": regs, "local_bytes": local}
 
 
 def _target(name, files, command):

@@ -18,13 +18,14 @@ Dawson sum at the evaluations where damping is live; it reads nothing
 from device memory between steps.  So the design works on instructions
 per step and on warps per SM: divisions by constants of the run became
 multiplications by reciprocals that the launcher derives once (the second
-block of ``SlabRun``), groups sharing a denominator take one reciprocal,
-the RK sum is folded into one accumulator and the slots that cannot move
-in a slab are carried as constants (fewer registers), blocks are 64
-threads under a register cap chosen per precision and variant on the
-card, and the Dawson sum is skipped where its result is masked, cut where
-its terms cannot change it, and multiplies by a table of 1/n.
-``occupancy`` reports the warps an SM holds; ``count_ops`` (host build)
+block of ``SlabRun``, ``rays::load_run``), groups sharing a denominator
+take one reciprocal, the RK sum is folded into one accumulator and the
+slots that cannot move in a slab are carried as constants (fewer
+registers), blocks are 64 threads under a register cap chosen per
+precision and variant on the card, and the Dawson sum is skipped where its
+result is masked, cut where its terms cannot change it, and multiplies by a
+table of 1/n.  ``native.occupancy(lib.rays_slab_occupancy, is_f64, S)``
+reports the warps an SM holds; ``count_ops`` (host build)
 counts the operations a batch needs, from which ``chip_smoke.py`` takes
 the kernel's bound.
 
@@ -33,9 +34,11 @@ slots) fixes the state width at compile time, so each variant is its own
 library (``-DRAYS_DAMPING``); the three build side by side at first use.
 
 ``trace_batch_fused`` is the wrapper: on CUDA tensors it builds the kernel
-libraries at first use (nvcc, see ``native.py``), launches the one of the
-config's variant on the current stream and counts the launch in
-``LAUNCHES``; on CPU tensors it runs the plain twin.  A failed build or
+libraries at first use (nvcc, see ``native.py``), packs the run constants
+(``run_rows``, ``model_codes``: the layout that the slab step and VJP
+kernels, tracing/slab_vjp.py, read too) with one host read, launches the
+library of the config's variant on the current stream and counts the launch
+in ``LAUNCHES``; on CPU tensors it runs the plain twin.  A failed build or
 launch raises; nothing falls back.  ``trace_batch_fused_reference`` is the
 plain twin: the port's generic ``trace_batch`` on the same inputs, with
 the same outputs.
@@ -44,14 +47,11 @@ the same outputs.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
-import os
-import shutil
 
 import torch
 
-from rays_tpu_torch import constants, native
+from rays_tpu_torch import native
 from rays_tpu_torch.models import base
 from rays_tpu_torch.tracing.trace import RayResults, trace_batch
 from rays_tpu_torch.utils import spans
@@ -68,9 +68,24 @@ _BY_MODELS = {"zero": 0, "constant": 1, "toroid": 2, "linear_shear": 3}
 _BZ_MODELS = {"zero": 0, "constant": 1, "toroid": 2, "linear": 3, "linear_2": 4}
 _DENS_MODELS = {"constant": 0, "linear": 1, "Gaussian": 2}
 _T_MODELS = {"zero": 0, "constant": 1, "linear": 2, "linear_2": 3, "parabolic": 4}
+N_CODES = 4 + MAX_SPECIES   # rays::N_CODES
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The packed run constants, the four row lists of csrc/slab_rk4.cuh
+# (RAYS_DIFF_ROWS, ...) by Params (group, field): a row of the scalar lists
+# is a field's first value (ms: the electrons' mass), the per-species lists
+# take S rows a field.  The slab VJP differentiates the first two (its
+# accumulator's rows); the slab step kernel and this kernel read all four.
+ROWS = (("eq", "rmaj"), ("eq", "rmin"), ("eq", "x0"), ("eq", "by0"), ("eq", "bz0"),
+        ("eq", "lby_shear_scale"), ("eq", "lbz_scale"), ("eq", "dbzdx"), ("eq", "ln_scale"),
+        ("eq", "alphan1"), ("rf", "omgrf"), ("rf", "omgrf_ref"), ("rf", "k0"), ("ode", "ds"))
+SPECIES_ROWS = (("species", "alpha_coef"), ("species", "gamma_coef"), ("species", "n0s"))
+FORWARD_ROWS = (("eq", "xmin"), ("eq", "xmax"), ("eq", "ymin"), ("eq", "ymax"), ("eq", "zmin"),
+                ("eq", "zmax"), ("ode", "s_max"), ("limits", "dispersion_resid_limit"),
+                ("eq", "lt_scale"), ("eq", "dtdx"), ("limits", "total_damping_limit"),
+                ("species", "ms"))
+FORWARD_SPECIES_ROWS = (("species", "t0s"), ("eq", "alphat1"), ("eq", "alphat2"),
+                        ("eq", "t_min"))
+_LISTS = (ROWS, SPECIES_ROWS, FORWARD_ROWS, FORWARD_SPECIES_ROWS)
 
 
 def supported(cfg) -> bool:
@@ -100,37 +115,43 @@ def supported(cfg) -> bool:
             and all(m in _T_MODELS for m in st.t_prof_model))
 
 
-# --- the run constants, field for field as rays::SlabRun<T> ---------------
-
-_SCALARS = ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax", "rmaj", "rmin", "x0",
-            "by0", "bz0", "lby_shear_scale", "lbz_scale", "dbzdx", "ln_scale",
-            "alphan1", "lt_scale", "dtdx")
-_SPECIES = ("alpha_coef", "gamma_coef", "n0s", "t0s", "alphat1", "alphat2", "t_min")
-_RUN = ("omgrf", "omgrf_ref", "k0", "ds", "s_max", "dispersion_resid_limit",
-        "total_damping_limit", "ms0", "clight")
-# filled by the library (rays::derive_run) from the fields above
-_DERIVED = ("inv_k0", "inv_k0sq", "inv_omgrf", "inv_rmaj", "inv_rmin", "inv_lby", "inv_lbz",
-            "inv_ln", "inv_lt", "gauss_coef", "half_ds", "sixth_ds", "omgc_coef",
-            "two_over_ms0", "inv_clight")
-_DERIVED_SPECIES = ("alpha_w2", "gamma_w", "dn_linear")
-_INTS = ("by_model", "bz_model", "dens_model", "time_param", "nstep_max",
-         "save_trajectory")
+def run_leaves(params):
+    """The Params tensors of the packed run constants, in the rows' order."""
+    return [getattr(getattr(params, g), f) for rows in _LISTS for g, f in rows]
 
 
-def _struct_type(ctype):
-    class SlabRun(ctypes.Structure):
-        _fields_ = ([(n, ctype) for n in _SCALARS]
-                    + [(n, ctype * MAX_SPECIES) for n in _SPECIES]
-                    + [(n, ctype) for n in _RUN]
-                    + [(n, ctype) for n in _DERIVED]
-                    + [(n, ctype * MAX_SPECIES) for n in _DERIVED_SPECIES]
-                    + [(n, ctypes.c_int32) for n in _INTS]
-                    + [("t_model", ctypes.c_int32 * MAX_SPECIES)])
-    return SlabRun
+def run_rows(cfg, params):
+    """The packed run constants' rows, leaf by leaf in the rows' order:
+    detached 1-D views of the Params values, one row of a scalar list's
+    field and ``cfg.ns`` of a per-species field.  ``torch.cat`` of them is
+    the packed vector."""
+    widths = [n for rows, n in zip(_LISTS, (1, cfg.ns, 1, cfg.ns)) for _ in rows]
+    return [t.detach().reshape(-1)[:n] for t, n in zip(run_leaves(params), widths)]
 
 
-_RUN_STRUCTS = {torch.float64: _struct_type(ctypes.c_double),
-                torch.float32: _struct_type(ctypes.c_float)}
+def model_codes(cfg):
+    """The run's profile models and ray parameter as the kernels' codes, in
+    rays::C_* order: an int32 array of ``N_CODES`` (the species past
+    ``cfg.ns`` 0)."""
+    st = cfg.eq_static
+    return (ctypes.c_int32 * N_CODES)(
+        _BY_MODELS[st.by_prof_model], _BZ_MODELS[st.bz_prof_model],
+        _DENS_MODELS[st.dens_prof_model], int(cfg.ray_param == "time"),
+        *[_T_MODELS[m] for m in st.t_prof_model])
+
+
+def check_rows(lib):
+    """Raise unless the row lists of a library's csrc/slab_rk4.cuh, which
+    it reports by name (``rays_slab_row_names``), are this module's."""
+    fn = lib.rays_slab_row_names
+    fn.argtypes, fn.restype = [], ctypes.c_char_p
+    theirs = [names.split() for names in fn().decode().split("|")]
+    ours = [[f for _, f in rows] for rows in _LISTS]
+    if theirs != ours:
+        raise RuntimeError(f"the packed run constants differ between csrc/slab_rk4.cuh "
+                           f"({theirs}) and fused_slab.py ({ours})")
+
+
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 
@@ -141,72 +162,24 @@ def _variant(cfg) -> int:
     return 2 if cfg.multi_spec_damping else 1
 
 
-def _run_struct(cfg, params, dtype):
-    """Read the run constants from Params with one device-to-host copy.
-    The derived fields stay zero: the library's launchers fill them."""
-    sp, eq, rf = params.species, params.eq, params.rf
-    values = {**{n: getattr(eq, n) for n in _SCALARS},
-              "alpha_coef": sp.alpha_coef, "gamma_coef": sp.gamma_coef, "n0s": sp.n0s,
-              "t0s": sp.t0s, "alphat1": eq.alphat1, "alphat2": eq.alphat2,
-              "t_min": eq.t_min, "omgrf": rf.omgrf, "omgrf_ref": rf.omgrf_ref, "k0": rf.k0,
-              "ds": params.ode.ds, "s_max": params.ode.s_max,
-              "dispersion_resid_limit": params.limits.dispersion_resid_limit,
-              "total_damping_limit": params.limits.total_damping_limit, "ms0": sp.ms[0]}
-    tensors = [(n, t.detach().reshape(-1)) for n, t in values.items()]
-    flat = torch.cat([t for _, t in tensors]).cpu().tolist()
-
-    run = _RUN_STRUCTS[dtype]()
-    i = 0
-    for n, t in tensors:
-        if n in _SPECIES:
-            getattr(run, n)[:t.numel()] = flat[i:i + t.numel()]
-        else:
-            setattr(run, n, flat[i])
-        i += t.numel()
-    run.clight = constants.CLIGHT
-    st = cfg.eq_static
-    run.by_model = _BY_MODELS[st.by_prof_model]
-    run.bz_model = _BZ_MODELS[st.bz_prof_model]
-    run.dens_model = _DENS_MODELS[st.dens_prof_model]
-    run.time_param = int(cfg.ray_param == "time")
-    run.nstep_max = cfg.nstep_max
-    run.save_trajectory = int(cfg.save_trajectory)
-    run.t_model[:cfg.ns] = [_T_MODELS[m] for m in st.t_prof_model]
-    return run
-
-
 def bind(lib):
     """Declare the C interface of a slab RK4 library (the CUDA launchers or
-    the host build of the same body) and check the struct layout."""
-    vp = ctypes.c_void_p
+    the host build of the same body) and check its row layout."""
+    check_rows(lib)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int32
     lib.rays_slab_damping.argtypes, lib.rays_slab_damping.restype = [], ctypes.c_int
-    for dtype, suffix in _SUFFIX.items():
-        size = getattr(lib, f"rays_slab_run_size_{suffix}")
-        size.argtypes, size.restype = [], ctypes.c_int
-        if size() != ctypes.sizeof(_RUN_STRUCTS[dtype]):
-            raise RuntimeError(
-                f"SlabRun<{suffix}> layout differs between csrc/slab_rk4.cuh "
-                f"({size()} bytes) and fused_slab.py "
-                f"({ctypes.sizeof(_RUN_STRUCTS[dtype])} bytes)")
+    for suffix in _SUFFIX.values():
         fn = getattr(lib, f"rays_slab_rk4_{suffix}")
-        fn.argtypes = [vp, ctypes.c_int, vp, vp, ctypes.c_int64] + [vp] * 8
+        fn.argtypes = [vp, vp, ctypes.c_int, i32, i32, vp, vp, ctypes.c_int64] + [vp] * 8
         fn.restype = ctypes.c_int
     return lib
 
 
-def occupancy(lib, dtype, nspecies):
-    """What the CUDA runtime reports for the kernel instantiation that a
-    launch of ``lib`` at ``dtype`` and ``nspecies`` runs: {threads per
-    block, blocks per SM, warps per SM, registers, local bytes}."""
-    out = (ctypes.c_int * 4)()
-    fn = lib.rays_slab_occupancy
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
-    rc = fn(int(dtype == torch.float64), nspecies, ctypes.addressof(out))
-    if rc != 0:
-        raise RuntimeError(f"slab RK4 occupancy query failed with CUDA error {rc}")
-    threads, blocks, regs, local = out
-    return {"threads": threads, "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
-            "registers": regs, "local_bytes": local}
+def _packed(cfg, params, dtype):
+    """The packed run constants in host memory (one read of the device) and
+    the model codes, for a launcher's call."""
+    packed = torch.cat(run_rows(cfg, params)).to(device="cpu", dtype=dtype)
+    return packed, model_codes(cfg)
 
 
 OP_KINDS = ("add", "mul", "div", "sqrt", "exp", "pow")
@@ -224,32 +197,21 @@ def count_ops(host_lib, cfg, params, v0, status0):
     if host_lib.rays_slab_damping() != _variant(cfg):
         raise ValueError("the host library holds another damping variant")
     B, nv = v0.shape
-    cfg = dataclasses.replace(cfg, save_trajectory=False)
-    run = _run_struct(cfg, params, torch.float64)
+    packed, codes = _packed(cfg, params, torch.float64)
     v_out = torch.empty((B, nv), dtype=torch.float64)
     stop, npoints = (torch.empty((B,), dtype=torch.int32) for _ in range(2))
     end_res, max_res = (torch.empty((B,), dtype=torch.float64) for _ in range(2))
     ops = (ctypes.c_int64 * len(OP_KINDS))()
+    vp = ctypes.c_void_p
     fn = host_lib.rays_slab_count_ops
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_int64] + [ctypes.c_void_p] * 8)
+    fn.argtypes = [vp, vp, ctypes.c_int, ctypes.c_int32, vp, vp, ctypes.c_int64] + [vp] * 6
     fn.restype = ctypes.c_int
-    rc = fn(ctypes.addressof(run), cfg.ns, v0.data_ptr(), status0.data_ptr(), B,
-            v_out.data_ptr(), stop.data_ptr(), npoints.data_ptr(), end_res.data_ptr(),
-            max_res.data_ptr(), None, None, ctypes.addressof(ops))
+    rc = fn(packed.data_ptr(), codes, cfg.ns, cfg.nstep_max, v0.data_ptr(), status0.data_ptr(),
+            B, v_out.data_ptr(), stop.data_ptr(), npoints.data_ptr(), end_res.data_ptr(),
+            max_res.data_ptr(), ctypes.addressof(ops))
     if rc != 0:
         raise RuntimeError(f"rays_slab_count_ops failed ({rc})")
     return dict(zip(OP_KINDS, ops)), npoints
-
-
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the slab RK4 CUDA kernel cannot be built")
 
 
 @functools.lru_cache(maxsize=None)
@@ -257,19 +219,16 @@ def load_libraries():
     """Build (at first use, the three variants side by side) and load the
     CUDA kernel libraries.  Returns {variant: (ctypes library, compiler
     output with the -Xptxas -v report)}."""
-    nvcc = _nvcc()
+    nvcc = native.nvcc()
     files = [native.CSRC / "slab_rk4.cu", native.CSRC / "slab_rk4.cuh"]
 
     def spec(variant):
         return (f"slab_rk4_d{variant}", files,
-                lambda out: [nvcc, *NVCC_FLAGS, f"-DRAYS_DAMPING={variant}", "-o",
+                lambda out: [nvcc, *native.NVCC_FLAGS, f"-DRAYS_DAMPING={variant}", "-o",
                              str(out), "slab_rk4.cu"])
 
     built = native.build_all([spec(v) for v in VARIANTS])
     return {v: (bind(ctypes.CDLL(str(path))), log) for v, (path, log) in zip(VARIANTS, built)}
-
-
-HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 
 
 @functools.lru_cache(maxsize=None)
@@ -278,15 +237,13 @@ def load_host_libraries():
     kernel body, ``csrc/host_shim.cpp``: the same per-ray code as a loop
     over rays on the CPU, for the CPU tests and for ``count_ops``.  Nothing
     on the tracing path uses them.  Returns {variant: library}."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        raise RuntimeError("g++ not found: the host build of the kernel body needs it")
+    gxx = native.gxx()
     files = [native.CSRC / f for f in ("host_shim.cpp", "counted.h", "slab_rk4.cuh")]
 
     def spec(variant):
         return (f"slab_rk4_host_d{variant}", files,
-                lambda out: [gxx, *HOST_FLAGS, f"-DRAYS_DAMPING={variant}", "-o", str(out),
-                             "host_shim.cpp"])
+                lambda out: [gxx, *native.HOST_FLAGS, f"-DRAYS_DAMPING={variant}", "-o",
+                             str(out), "host_shim.cpp"])
 
     built = native.build_all([spec(v) for v in VARIANTS])
     return {v: bind(ctypes.CDLL(str(path))) for v, (path, _) in zip(VARIANTS, built)}
@@ -300,7 +257,7 @@ def _check_inputs(cfg, v0, status0):
         raise ValueError(f"v0 must be (B, {cfg.nv}), got {tuple(v0.shape)}")
     if v0.shape[0] == 0:
         raise ValueError("empty ray batch")
-    if v0.dtype not in _RUN_STRUCTS:
+    if v0.dtype not in _SUFFIX:
         raise ValueError(f"v0 must be float32 or float64, got {v0.dtype}")
     if status0.shape != (v0.shape[0],) or status0.dtype != torch.int32:
         raise ValueError("status0 must be int32 of shape (B,)")
@@ -318,7 +275,7 @@ def run_library(lib, cfg, params, v0, status0, pwr_wt, stream=None) -> RayResult
         raise ValueError(f"the library holds damping variant {lib.rays_slab_damping()}, "
                          f"the config needs {_variant(cfg)}")
     B, nv, dt, dev = v0.shape[0], v0.shape[1], v0.dtype, v0.device
-    run = _run_struct(cfg, params, dt)
+    packed, codes = _packed(cfg, params, dt)
 
     def empty(dtype):
         return torch.empty((B,), dtype=dtype, device=dev)
@@ -336,9 +293,10 @@ def run_library(lib, cfg, params, v0, status0, pwr_wt, stream=None) -> RayResult
 
     fn = getattr(lib, f"rays_slab_rk4_{_SUFFIX[dt]}")
     with spans.span("rays.kernel.launch"):
-        rc = fn(ctypes.addressof(run), cfg.ns, v0.data_ptr(), status0.data_ptr(), B,
-                v_out.data_ptr(), stop.data_ptr(), npoints.data_ptr(),
-                end_res.data_ptr(), max_res.data_ptr(), *traj_ptrs, stream)
+        rc = fn(packed.data_ptr(), codes, cfg.ns, cfg.nstep_max, int(cfg.save_trajectory),
+                v0.data_ptr(), status0.data_ptr(), B, v_out.data_ptr(), stop.data_ptr(),
+                npoints.data_ptr(), end_res.data_ptr(), max_res.data_ptr(), *traj_ptrs,
+                stream)
     if rc != 0:
         raise RuntimeError(f"slab RK4 kernel launch failed with CUDA error {rc}")
 
@@ -359,8 +317,8 @@ def trace_batch_fused(cfg, params, v0, status0, pwr_wt) -> RayResults:
     plain twin.  Trajectories come back as (B, nstep_max+1, nv) and
     (B, nstep_max+1) views of the kernel's (step, slot, ray) buffers.
     The span ``rays.kernel.prepare`` holds the checks, the library lookup,
-    the run constants' host read, the allocations and the launch, whose
-    own span is ``rays.kernel.launch``."""
+    the run constants' packing and host read, the allocations and the
+    launch, whose own span is ``rays.kernel.launch``."""
     global LAUNCHES
     if v0.device.type == "cpu":
         return trace_batch_fused_reference(cfg, params, v0, status0, pwr_wt)

@@ -23,8 +23,9 @@ ray writes its carry into the stack at the device index k, steps it with
 the slab kernel's physics and the RK4 stages that the VJP recomputes, and
 writes the carry after the step in place (with trajectories, row k + 1
 too).  Both kernels read the Params from one packed device vector that
-``SlabVJP.pack`` fills at each run's load, so a captured launch reads
-each run's values and nothing is read on the host.  Their plain versions
+``SlabVJP.pack`` fills at each run's load, in the slab kernel's layout
+(``fused_slab.run_rows``), so a captured launch reads each run's values
+and nothing is read on the host.  Their plain versions
 are the generic pieces: the tests hold the same bodies, built with g++
 (``csrc/slab_rk4_vjp_host.cpp``), to them on the CPU.
 
@@ -46,7 +47,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import shutil
 
 import torch
 
@@ -56,24 +56,6 @@ from rays_tpu_torch.tracing import fused_slab
 # launches of the CUDA kernels in this process (not of the host build)
 LAUNCHES = 0        # the VJP
 STEP_LAUNCHES = 0   # the forward step
-
-# the packed Params vector and the accumulator rows, in rays::P_* order;
-# then alpha_coef, gamma_coef and n0s, S rows each
-ROWS = (("eq", "rmaj"), ("eq", "rmin"), ("eq", "x0"), ("eq", "by0"), ("eq", "bz0"),
-        ("eq", "lby_shear_scale"), ("eq", "lbz_scale"), ("eq", "dbzdx"), ("eq", "ln_scale"),
-        ("eq", "alphan1"), ("rf", "omgrf"), ("rf", "omgrf_ref"), ("rf", "k0"), ("ode", "ds"))
-SPECIES_ROWS = (("species", "alpha_coef"), ("species", "gamma_coef"), ("species", "n0s"))
-# then the rows that only the forward step reads, in rays::F_* order,
-# with no accumulator rows; then t0s, alphat1, alphat2 and t_min, S rows
-# each
-STEP_ROWS = (("eq", "xmin"), ("eq", "xmax"), ("eq", "ymin"), ("eq", "ymax"), ("eq", "zmin"),
-             ("eq", "zmax"), ("ode", "s_max"), ("limits", "dispersion_resid_limit"),
-             ("eq", "lt_scale"), ("eq", "dtdx"))
-STEP_SPECIES_ROWS = (("species", "t0s"), ("eq", "alphat1"), ("eq", "alphat2"), ("eq", "t_min"))
-
-NVCC_FLAGS = fused_slab.NVCC_FLAGS
-HOST_FLAGS = fused_slab.HOST_FLAGS
-
 
 def takes(cfg, device) -> bool:
     """Whether the adjoint graph's "vjp" piece is this kernel: CUDA
@@ -90,9 +72,8 @@ def _args_type(ctype):
                                       "stack_end", "stack_max", "nstep_out", "end_out",
                                       "cot_v", "cot_f1", "cot_end", "cot_max", "traj_cot",
                                       "resid_cot", "acc")]
-                    + [("B", ctypes.c_int64)]
-                    + [(n, ctypes.c_int32) for n in ("nstep_max", "by_model", "bz_model",
-                                                     "dens_model", "time_param", "pad")])
+                    + [("B", ctypes.c_int64), ("nstep_max", ctypes.c_int32),
+                       ("codes", ctypes.c_int32 * fused_slab.N_CODES)])
     return SlabVjpArgs
 
 
@@ -105,10 +86,9 @@ def _step_args_type(ctype):
     class SlabStepArgs(ctypes.Structure):
         _fields_ = ([(n, p) for n in ("params", "k", *_CARRY)]
                     + [(f"stack_{n}", p) for n in _CARRY]
-                    + [("traj", p), ("resid", p), ("B", ctypes.c_int64)]
-                    + [(n, ctypes.c_int32) for n in ("nstep_max", "by_model", "bz_model",
-                                                     "dens_model", "time_param", "pad")]
-                    + [("t_model", ctypes.c_int32 * fused_slab.MAX_SPECIES)])
+                    + [("traj", p), ("resid", p), ("B", ctypes.c_int64),
+                       ("nstep_max", ctypes.c_int32),
+                       ("codes", ctypes.c_int32 * fused_slab.N_CODES)])
     return SlabStepArgs
 
 
@@ -122,7 +102,9 @@ _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 def bind(lib):
     """Declare the C interface of a slab VJP library (the CUDA launchers or
-    the host build of the same bodies) and check the argument layouts."""
+    the host build of the same bodies) and check its row and argument
+    layouts."""
+    fused_slab.check_rows(lib)
     for piece, (types, header) in _ARGS.items():
         for dtype, suffix in _SUFFIX.items():
             size = getattr(lib, f"rays_slab_{piece}_args_size_{suffix}")
@@ -147,12 +129,12 @@ def load_library(dtype, ns):
     precision and species count, the VJP and the forward step; returns
     (ctypes library, compiler output with the -Xptxas -v report of both
     kernels)."""
-    nvcc = fused_slab._nvcc()
+    nvcc = native.nvcc()
     files = [native.CSRC / f for f in ("slab_rk4_vjp.cu", *_FILES)]
     flags = (f"-DRAYS_VJP_SPECIES={int(ns)}", f"-DRAYS_VJP_F64={int(dtype == torch.float64)}")
     (path, log), = native.build_all([(
         f"slab_rk4_vjp_{_SUFFIX[dtype]}_s{int(ns)}", files,
-        lambda out: [nvcc, *NVCC_FLAGS, *flags, "-o", str(out), "slab_rk4_vjp.cu"])])
+        lambda out: [nvcc, *native.NVCC_FLAGS, *flags, "-o", str(out), "slab_rk4_vjp.cu"])])
     return bind(ctypes.CDLL(str(path))), log
 
 
@@ -161,33 +143,15 @@ def load_host_library():
     """Build (at first use, with g++) and load the host build of the same
     bodies, ``csrc/slab_rk4_vjp_host.cpp``, for the CPU tests and
     ``count_ops``.  Nothing on the tracing path uses it."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        raise RuntimeError("g++ not found: the host build of the slab kernels needs it")
+    gxx = native.gxx()
     files = [native.CSRC / f for f in ("slab_rk4_vjp_host.cpp", "counted.h", *_FILES)]
     (path, _), = native.build_all([(
         "slab_rk4_vjp_host", files,
-        lambda out: [gxx, *HOST_FLAGS, "-o", str(out), "slab_rk4_vjp_host.cpp"])])
+        lambda out: [gxx, *native.HOST_FLAGS, "-o", str(out), "slab_rk4_vjp_host.cpp"])])
     lib = bind(ctypes.CDLL(str(path)))
     fn = lib.rays_slab_vjp_count_ops
     fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
     return lib
-
-
-def occupancy(lib, kernel="vjp"):
-    """What the CUDA runtime reports for a CUDA library's instantiation of
-    the VJP (``kernel="vjp"``) or of the forward step (``"step"``):
-    {threads per block, blocks per SM, warps per SM, registers, local
-    bytes}."""
-    out = (ctypes.c_int * 4)()
-    fn = getattr(lib, f"rays_slab_{kernel}_occupancy")
-    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
-    rc = fn(ctypes.addressof(out))
-    if rc != 0:
-        raise RuntimeError(f"slab {kernel} occupancy query failed with CUDA error {rc}")
-    threads, blocks, regs, local = out
-    return {"threads": threads, "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
-            "registers": regs, "local_bytes": local}
 
 
 def _ptr(t):
@@ -196,11 +160,12 @@ def _ptr(t):
 
 class SlabVJP:
     """The kernels' side of one ``StaticAdjoint`` (``loop``): the packed
-    Params vector (its ``STEP_ROWS`` for the forward step), the VJP's
-    (rows, B) accumulator and each piece's launch arguments, all on the
-    loop's static buffers, so that a captured launch reads the values of
-    each run.  ``lib``: a bound library whose code can address the loop's
-    tensors (the CUDA library, or the host build on the CPU)."""
+    Params vector (``fused_slab.run_rows`` of the loop's static leaves), the
+    VJP's (rows, B) accumulator over its first rows and each piece's launch
+    arguments, all on the loop's static buffers, so that a captured launch
+    reads the values of each run.  ``lib``: a bound library whose code can
+    address the loop's tensors (the CUDA library, or the host build on the
+    CPU)."""
 
     def __init__(self, lib, loop):
         cfg, p = loop.cfg, loop.params
@@ -215,30 +180,24 @@ class SlabVJP:
         self.lib, self.ns = lib, cfg.ns
         # launches made into a CUDA graph's capture, by piece
         self.captured = {"step": 0, "vjp": 0}
-        # the packed vector's sources (a scalar leaf is one row), and for
-        # each: its leaf's index in loop.leaves, its first and past-last rows
-        leaves = [getattr(getattr(p, g), f) for g, f in ROWS + SPECIES_ROWS]
-        step = [getattr(getattr(p, g), f) for g, f in STEP_ROWS + STEP_SPECIES_ROWS]
-        # views of the leaves' values outside autograd: a view with a grad_fn
-        # would hold each leaf's gradient accumulator on this stream
-        self.sources = [t.detach().reshape(-1)[:cfg.ns] for t in leaves + step]
+        # the packed vector's sources, views of the leaves' values outside
+        # autograd (a view with a grad_fn would hold each leaf's gradient
+        # accumulator on this stream), and for each leaf the VJP
+        # differentiates: its index in loop.leaves, its first and past-last
+        # rows
+        self.sources = fused_slab.run_rows(cfg, p)
+        n_diff = len(fused_slab.ROWS) + len(fused_slab.SPECIES_ROWS)
+        differentiated = fused_slab.run_leaves(p)[:n_diff]
         index = {id(t): i for i, t in enumerate(loop.leaves)}
         self.leaf_of, start = [], 0
-        for t, src in zip(leaves, self.sources):
+        for t, src in zip(differentiated, self.sources):
             self.leaf_of.append((index[id(t)], start, start + src.numel()))
             start += src.numel()
         self.params = torch.zeros((sum(t.numel() for t in self.sources),), dtype=dt, device=dev)
         self.acc = torch.zeros((start, B), dtype=dt, device=dev)
         stack, carry = loop.stack, loop.carry
         cot_v, cot_f1, _, cot_end, cot_max = loop.cot
-        st = cfg.eq_static
-        models = dict(B=B, nstep_max=cfg.nstep_max,
-                      by_model=fused_slab._BY_MODELS[st.by_prof_model],
-                      bz_model=fused_slab._BZ_MODELS[st.bz_prof_model],
-                      dens_model=fused_slab._DENS_MODELS[st.dens_prof_model],
-                      time_param=int(cfg.ray_param == "time"), pad=0)
-        t_model = (ctypes.c_int32 * fused_slab.MAX_SPECIES)(
-            *[fused_slab._T_MODELS[m] for m in st.t_prof_model])
+        models = dict(B=B, nstep_max=cfg.nstep_max, codes=fused_slab.model_codes(cfg))
         self.args = {
             "vjp": _ARGS["vjp"][0][dt](
                 params=_ptr(self.params), k=_ptr(loop.k), stack_v=_ptr(stack[0]),
@@ -251,7 +210,7 @@ class SlabVJP:
                 params=_ptr(self.params), k=_ptr(loop.k),
                 **{n: _ptr(t) for n, t in zip(_CARRY, carry)},
                 **{f"stack_{n}": _ptr(t) for n, t in zip(_CARRY, stack)},
-                traj=_ptr(loop.traj), resid=_ptr(loop.resid), t_model=t_model, **models)}
+                traj=_ptr(loop.traj), resid=_ptr(loop.resid), **models)}
         self.fn = {piece: getattr(lib, f"rays_slab_{piece}_{_SUFFIX[dt]}")
                    for piece in self.args}
         self.device = dev

@@ -58,9 +58,6 @@ CHAIN_ADDS = {"div": 1, "sqrt": 1, "rsqrt": 1, "exp": 1, "log": 1}
 # launches of each kernel in this process (not of the plain chains)
 LAUNCHES: collections.Counter = collections.Counter()
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-fmad=false")
-
 # NVIDIA's H100 SXM data sheet: memory rate, and FP64 / FP32 rates outside
 # the tensor cores (an FMA is two operations)
 HBM_BYTES_PER_S = 3.35e12
@@ -216,13 +213,12 @@ def matvec_reference(m, x, iters=ITERS):
 def load_library():
     """Build (at first use) and load the op-rate kernels.  Returns
     (ctypes library, compiler output with the -Xptxas -v report)."""
-    from rays_tpu_torch.tracing import fused_slab
-
-    nvcc = fused_slab._nvcc()
+    nvcc = native.nvcc()
     files = [native.CSRC / "op_rates.cu"]
+    # unfused: each chain's operation class alone, as its plain chain rounds
     (path, log), = native.build_all([(
         "op_rates", files,
-        lambda out: [nvcc, *NVCC_FLAGS, "-o", str(out), "op_rates.cu"])])
+        lambda out: [nvcc, *native.NVCC_FLAGS, "-fmad=false", "-o", str(out), "op_rates.cu"])])
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for suffix in _SUFFIX.values():

@@ -18,7 +18,6 @@ import _torch_parity as tp
 import rays_tpu  # noqa: F401  (x64 on)
 from rays_tpu import examples as jex
 from rays_tpu.tracing import fused_slab as jfused
-from rays_tpu_torch import constants
 from rays_tpu_torch.core.types import Config, tree_to
 from rays_tpu_torch.tracing import fused_slab as tfused
 from rays_tpu_torch.tracing import trace as ttrace
@@ -129,31 +128,38 @@ def test_wrapper_checks_inputs():
         tfused.trace_batch_fused(pcfg, pp, tv0.to("meta"), tst.to("meta"), tpw)
 
 
+def params_field(params, name):
+    """The Params tensor of a field name, found in the one group that has it."""
+    groups = [g for g in params._fields if name in getattr(params, g)._fields]
+    assert len(groups) == 1, (name, groups)
+    return getattr(getattr(params, groups[0]), name)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("text", [jex.SLAB_ECH_90GHZ, jex.SLAB_ECH_DAMPED],
                          ids=["undamped", "damped"])
-def test_run_struct_fields(text, dtype):
-    """The run constants, read with one host copy, hold in every field what
-    a read of each Params leaf on its own gives."""
+def test_packed_rows_hold_params(text, dtype):
+    """Every row of the packed run constants holds, in the layout's order,
+    what a read of its Params field on its own gives: a field of a scalar
+    list its first value (ms: the electrons'), a per-species field its ns;
+    and the model codes are the config's."""
     cfg, params, *_ = tp.jax_case(text)
     pcfg, pp = tp.to_port(cfg, params)
     pp = tree_to(pp, dtype=dtype)
-    run = tfused._run_struct(pcfg, pp, dtype)
-    sp, eq, ns = pp.species, pp.eq, pcfg.ns
-    for n in tfused._SCALARS:
-        assert getattr(run, n) == getattr(eq, n).item(), n
-    per_species = dict(alpha_coef=sp.alpha_coef, gamma_coef=sp.gamma_coef, n0s=sp.n0s,
-                       t0s=sp.t0s, alphat1=eq.alphat1, alphat2=eq.alphat2, t_min=eq.t_min)
-    for n, t in per_species.items():
-        assert list(getattr(run, n)[:ns]) == t.tolist(), n
-        assert not any(getattr(run, n)[ns:]), n
-    for n, t in (("omgrf", pp.rf.omgrf), ("omgrf_ref", pp.rf.omgrf_ref), ("k0", pp.rf.k0),
-                 ("ds", pp.ode.ds), ("s_max", pp.ode.s_max),
-                 ("dispersion_resid_limit", pp.limits.dispersion_resid_limit),
-                 ("total_damping_limit", pp.limits.total_damping_limit),
-                 ("ms0", sp.ms[0])):
-        assert getattr(run, n) == t.item(), n
-    assert run.clight == pytest.approx(constants.CLIGHT, rel=1e-7)
-    assert (run.nstep_max, run.save_trajectory, run.time_param) == (
-        pcfg.nstep_max, int(pcfg.save_trajectory), int(pcfg.ray_param == "time"))
-    assert list(run.t_model[:ns]) == [tfused._T_MODELS[m] for m in pcfg.eq_static.t_prof_model]
+    ns = pcfg.ns
+    packed = torch.cat(tfused.run_rows(pcfg, pp))
+    assert packed.dtype == dtype
+    lists = (tfused.ROWS, tfused.SPECIES_ROWS, tfused.FORWARD_ROWS, tfused.FORWARD_SPECIES_ROWS)
+    at = 0
+    for rows, n in zip(lists, (1, ns, 1, ns)):
+        for _, name in rows:
+            want = params_field(pp, name).reshape(-1)
+            assert want.numel() == (ns if name == "ms" else n), name
+            assert packed[at:at + n].tolist() == want[:n].tolist(), name
+            at += n
+    assert at == packed.numel() == 26 + 7 * ns
+    st = pcfg.eq_static
+    assert list(tfused.model_codes(pcfg)) == [
+        tfused._BY_MODELS[st.by_prof_model], tfused._BZ_MODELS[st.bz_prof_model],
+        tfused._DENS_MODELS[st.dens_prof_model], int(pcfg.ray_param == "time"),
+        *[tfused._T_MODELS[m] for m in st.t_prof_model], *[0] * (tfused.MAX_SPECIES - ns)]

@@ -9,7 +9,7 @@ import sys
 import pytest
 import torch
 
-from rays_tpu_torch import examples, run as trun
+from rays_tpu_torch import examples, native, run as trun
 from rays_tpu_torch.tracing import fused_slab
 from rays_tpu_torch.tracing import trace as trace_mod
 from rays_tpu_torch.tracing.trace import route, trace_rays
@@ -169,10 +169,10 @@ def test_kernel_configs_never_take_the_plain_route_off_the_cpu(text, monkeypatch
 
 def test_kernel_build_raises_without_nvcc(monkeypatch):
     """No nvcc: the build raises (and nothing runs in the kernel's place)."""
-    monkeypatch.setattr(fused_slab.shutil, "which", lambda name: None)
-    monkeypatch.setattr(fused_slab.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    monkeypatch.setattr(native.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc"):
-        fused_slab._nvcc()
+        native.nvcc()
 
 
 @pytest.mark.parametrize("tool", NEW_TOOLS)

@@ -26,6 +26,7 @@ import rays_tpu  # noqa: F401  (x64 on)
 from rays_tpu import examples as jex
 from rays_tpu.tracing import fused_slab as jfused, trace as jtrace
 from rays_tpu.tracing.stop import StopCode
+from rays_tpu_torch import constants
 from rays_tpu_torch.core.types import tree_to
 from rays_tpu_torch.tracing import fused_slab as tfused
 
@@ -253,26 +254,68 @@ def test_host_damping_never_live_gives_exact_zero(host_libs, case, multi):
         assert (res.ray_vec[..., 7:] == 0.0).all() and (res.end_ray_vec[:, 7:] == 0.0).all()
 
 
+# SlabRun's derived fields in the order host_shim.cpp's read_run writes them
+DERIVED = ("inv_k0", "inv_k0sq", "inv_omgrf", "inv_rmaj", "inv_rmin", "inv_lby", "inv_lbz",
+           "inv_ln", "inv_lt", "gauss_coef", "half_ds", "sixth_ds", "omgc_coef",
+           "two_over_ms0", "inv_clight")
+DERIVED_SPECIES = ("alpha_w2", "gamma_w", "dn_linear")
+
+
+def _read_run(lib, pcfg, pp, dtype):
+    """The run constants as the host build's load_run fills them from the
+    packed rows: {field name: value, or per-species values}."""
+    packed = torch.cat(tfused.run_rows(pcfg, pp))
+    codes = tfused.model_codes(pcfg)
+    out = torch.full((256,), float("nan"), dtype=dtype)
+    fn = getattr(lib, f"rays_slab_read_run_{tfused._SUFFIX[dtype]}")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = fn(packed.data_ptr(), codes, pcfg.ns, out.data_ptr())
+    lib.rays_slab_row_names.restype = ctypes.c_char_p
+    lists = [names.split() for names in lib.rays_slab_row_names().decode().split("|")]
+    ns, fields, at = pcfg.ns, {}, 0
+    for names, width in zip(lists + [DERIVED, DERIVED_SPECIES, ("codes",)],
+                            (1, ns, 1, ns, 1, ns, 4 + ns)):
+        for name in names:
+            fields[name] = out[at] if width == 1 else out[at:at + width]
+            at += width
+    assert n == at == packed.numel() + len(DERIVED) + 3 * ns + 4 + ns
+    return packed, fields
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("text", [jex.SLAB_ECH_90GHZ, jex.SLAB_ECH_DAMPED],
                          ids=["undamped", "damped"])
-def test_host_derived_run_fields(host_lib, text, dtype):
-    """Every derived field of SlabRun, filled by the library in the kernel's
-    precision and read back through the ctypes mirror: a swapped field
-    order would show here (the size check cannot see it)."""
+def test_host_loaded_run_fields(host_lib, text, dtype):
+    """Every field of SlabRun that load_run fills from the packed rows, read
+    back from the host build by the names of its row lists: each row's
+    field holds its Params value read alone, each derived field its formula
+    in the kernel's precision, the codes the config's.  The deck's values
+    are replaced by distinct ones, so a row in another field shows here."""
+    from test_torch_fused import params_field
+
     cfg, params, *_ = tp.jax_case(text, combo=tp.KERNEL_COMBOS[2])
     pcfg, pp = tp.to_port(cfg, params)
+    at = 0
+    for group, name in tfused.ROWS + tfused.SPECIES_ROWS + tfused.FORWARD_ROWS + \
+            tfused.FORWARD_SPECIES_ROWS:
+        t = getattr(getattr(pp, group), name)
+        values = 1 + torch.arange(at, at + t.numel(), dtype=torch.float64).reshape(t.shape) / 64
+        pp = pp._replace(**{group: getattr(pp, group)._replace(**{name: values})})
+        at += t.numel()
     pp = tree_to(pp, dtype=dtype)
-    run = tfused._run_struct(pcfg, pp, dtype)
-    for n in tfused._DERIVED:
-        assert getattr(run, n) == 0.0, n
-    derive = getattr(host_lib, f"rays_slab_derive_run_{tfused._SUFFIX[dtype]}")
-    derive.argtypes, derive.restype = [ctypes.c_void_p], None
-    derive(ctypes.addressof(run))
+    packed, fields = _read_run(host_lib, pcfg, pp, dtype)
+    raw = {n: t for n, t in fields.items() if n not in DERIVED + DERIVED_SPECIES + ("codes",)}
+    assert len(raw) == len(tfused.run_leaves(pp))
+    for name, got in raw.items():
+        want = params_field(pp, name).reshape(-1)[:got.numel()]
+        assert got.reshape(-1).tolist() == want.tolist(), name
+    assert len(set(packed.tolist())) == packed.numel()
+    assert fields["codes"].tolist() == list(tfused.model_codes(pcfg))[:4 + pcfg.ns]
 
     ftype = np.float64 if dtype == torch.float64 else np.float32
-    g = lambda n: ftype(getattr(run, n))
-    species = lambda n: np.array(list(getattr(run, n)), ftype)
+    g = lambda n: ftype(raw[n].item())
+    species = lambda n: raw[n].numpy()
     one, wratio = ftype(1), g("omgrf_ref") / g("omgrf")
     want = {
         "inv_k0": one / g("k0"), "inv_k0sq": one / (g("k0") * g("k0")),
@@ -283,24 +326,32 @@ def test_host_derived_run_fields(host_lib, text, dtype):
         "gauss_coef": ftype(-3) * g("alphan1") / (g("rmin") * g("rmin")),
         "half_ds": g("ds") / ftype(2), "sixth_ds": g("ds") / ftype(6),
         "omgc_coef": species("gamma_coef")[0] * g("omgrf_ref"),
-        "two_over_ms0": ftype(2) / g("ms0"), "inv_clight": one / g("clight"),
+        "two_over_ms0": ftype(2) / g("ms"),
+        "inv_clight": one / ftype(constants.CLIGHT),
     }
-    assert set(want) == set(tfused._DERIVED)
-    values = [float(v) for v in want.values()]
-    assert len(set(values)) == len(values) and all(np.isfinite(values)), "ambiguous case"
+    assert tuple(want) == DERIVED
+    got = [fields[n].item() for n in DERIVED]
+    assert len(set(got)) == len(got) and all(np.isfinite(got)), "ambiguous case"
     for n, w in want.items():
-        assert getattr(run, n) == w, n
+        assert fields[n].item() == w, n
     want_species = {
         "alpha_w2": species("alpha_coef") * (wratio * wratio),
         "gamma_w": species("gamma_coef") * wratio,
         "dn_linear": species("n0s") / g("ln_scale"),
     }
-    assert set(want_species) == set(tfused._DERIVED_SPECIES)
     for n, w in want_species.items():
-        np.testing.assert_array_equal(species(n), w, err_msg=n)
-        assert species(n)[:pcfg.ns].all(), n
-    # the fields read from Params are untouched, the ints still in place
-    assert (run.nstep_max, run.time_param) == (pcfg.nstep_max, int(pcfg.ray_param == "time"))
+        np.testing.assert_array_equal(fields[n].numpy(), w, err_msg=n)
+
+
+def test_swapped_row_fails_at_bind(host_lib, monkeypatch):
+    """Two rows swapped in the Python tables: loading a library refuses
+    them, as it would two swapped in csrc/slab_rk4.cuh."""
+    tfused.check_rows(host_lib)
+    rows = list(tfused.ROWS)
+    rows[0], rows[1] = rows[1], rows[0]
+    monkeypatch.setattr(tfused, "_LISTS", (tuple(rows), *tfused._LISTS[1:]))
+    with pytest.raises(RuntimeError, match="packed run constants differ"):
+        tfused.check_rows(host_lib)
 
 
 def test_count_ops_counts_what_the_rays_need(host_libs):

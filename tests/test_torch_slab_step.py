@@ -17,9 +17,11 @@ Held:
   pieces, on every case of tests/test_torch_slab_vjp.py (stops at the x
   bound, at s_max and before the start, one and two species, every
   profile model of the slab kernel, time and arc length, with and
-  without trajectories): npoints and stop codes equal to the slab
-  kernel's host build on the same deck (``fused_slab.run_library``) and
-  the end states and trajectories within its tolerances; the loss and the
+  without trajectories): npoints, stop codes, end states and residuals
+  bit for bit those of the slab kernel's host build on the same deck
+  (``fused_slab.run_library``: B1's loop and the step kernel do the same
+  operations in the same order), the trajectories within its tolerances;
+  the loss and the
   gradient of every floating Params leaf, v0 and pwr_wt against the
   generic pieces within GRAD_RTOL of each gradient's scale (float64; in
   float32 as tests/test_torch_slab_vjp.py holds the VJP kernel).
@@ -139,8 +141,14 @@ def test_whole_run_matches_slab_kernel_and_generic_pieces(host_lib, slab_lib, na
     with torch.no_grad():
         b1 = fused_slab.run_library(slab_lib, cfg, params, v0, st, pwr)
     detached = ttrace.RayResults(*(None if t is None else t.detach() for t in got))
-    # the forward: the slab kernel's npoints and stops, its end states and
-    # trajectories within its tolerances, the generic pieces' alike
+    # the forward: the slab kernel's npoints, stops, end states and
+    # residuals bit for bit (its loop and the step kernel do the same
+    # operations in the same order), its trajectories within its tolerances
+    # (the first step starts from trace.initial_carry's f1, the generic
+    # evaluation's, an ulp or so from the slab kernel's own, which a few rows
+    # show); the generic pieces' within the same
+    for field in ("npoints", "stop_flag", "end_ray_vec", "end_residuals", "max_residuals"):
+        assert torch.equal(getattr(detached, field), getattr(b1, field)), field
     assert detached.npoints.tolist() == ref.npoints.tolist()
     assert detached.stop_flag.tolist() == ref.stop_flag.tolist()
     if dtype == torch.float64:
@@ -150,8 +158,6 @@ def test_whole_run_matches_slab_kernel_and_generic_pieces(host_lib, slab_lib, na
         np.testing.assert_allclose(loss.item(), ref_loss.item(), rtol=1e-12)
         _assert_close(grads, ref_grads, GRAD_RTOL, name)
     else:
-        assert detached.npoints.tolist() == b1.npoints.tolist()
-        assert detached.stop_flag.tolist() == b1.stop_flag.tolist()
         exact = _run(*_case(name), None)[2]
         for i, (g, r, e) in enumerate(zip(grads, ref_grads, exact)):
             scale = float(e.abs().max()) if e.numel() else 0.0

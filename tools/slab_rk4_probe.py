@@ -140,11 +140,11 @@ def _build(tmp, specs):
     from rays_tpu_torch import native
     from rays_tpu_torch.tracing import fused_slab
     src = _s2_source(tmp)
-    nvcc = fused_slab._nvcc()
+    nvcc = native.nvcc()
     files = [src, tmp / "slab_rk4.cuh"]
     built = native.build_all([
         (f"probe_{name}", files,
-         lambda out, v=variant, d=defs: [nvcc, *fused_slab.NVCC_FLAGS, f"-DRAYS_DAMPING={v}",
+         lambda out, v=variant, d=defs: [nvcc, *native.NVCC_FLAGS, f"-DRAYS_DAMPING={v}",
                                         *d, "-o", str(out), str(src)])
         for name, variant, defs in specs])
     return {name: (fused_slab.bind(ctypes.CDLL(str(path))), log)
@@ -160,7 +160,7 @@ def _ptxas(log):
 
 def phase_sweep(args):
     import torch
-    from rays_tpu_torch.tracing import fused_slab
+    from rays_tpu_torch import native
     tmp = Path(tempfile.mkdtemp(prefix="probe_", dir=ROOT / "build"))
     specs = [(f"d{v}_b{b}", v, [f"-DRAYS_MIN_BLOCKS_F64={b}", f"-DRAYS_MIN_BLOCKS_F32={b}"])
              for v in (0, 2) for b in MIN_BLOCKS]
@@ -176,7 +176,7 @@ def phase_sweep(args):
                 if (kind == "undamped") != (variant == 0):
                     continue
                 dt = torch.float64 if tag == "f64" else torch.float32
-                occ = fused_slab.occupancy(lib, dt, 2)
+                occ = native.occupancy(lib.rays_slab_occupancy, int(dt == torch.float64), 2)
                 lo, _ = ms_of(lambda: fn(lib), reps=2)
                 table.append({"shape": name, "row": key, "pass": rep, "ms": lo,
                               "registers": regs[tag][0], "spill_bytes": regs[tag][1], **occ})
@@ -242,8 +242,8 @@ SASS_KERNELS = {
 def phase_sass(args):
     """Instructions of each one-line kernel, less those of the copy kernel
     of its type (address arithmetic, load, store, exit)."""
-    from rays_tpu_torch.tracing import fused_slab
-    nvcc = fused_slab._nvcc()
+    from rays_tpu_torch import native
+    nvcc = native.nvcc()
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
     counts = {}
     with tempfile.TemporaryDirectory() as tmp:
