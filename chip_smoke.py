@@ -43,21 +43,26 @@ every kernel library, runs in every call):
   through the tangent graph at the same size, held to phase 32's
   closed-form columns, with ms, peak GiB and the census of one outer
   step of both.
-* adjoint, phases 36, 37, 30, 33, 9, 13 and 16, every one through the
+* adjoint, phases 36, 37, 38, 30, 33, 9, 13 and 16, every one through the
   graphed adjoint (tracing/graphed_adjoint.py: each outer step and its VJP
   captured once as CUDA graphs, the backward replaying the VJP last step
   first).  36: the slab VJP kernel (tracing/slab_vjp.py), the VJP piece of
   B1's configs without damping, at the benchmark cell's shapes against
   the generic piece captured alike, with ms per step, launches and its
   bound.  37: the slab step kernel (tracing/slab_vjp.py), their step
-  piece, alike against the generic step piece and against B1.  30: every
+  piece, alike against the generic step piece and against B1.  38: the
+  EQDSK step kernel (tracing/eqdsk_step.py), the step piece of the spline
+  toroid with a cell table, on the benchmark cell solovev_eqdsk.grad's
+  deck and fan (seed 0) against the generic pieces, with a float32
+  control and its bound from a host count of its operations.  30: every
   configuration of that route (RK4 on the slab, damped slab, slab with
   the equilibrium-gradient slots, Solovev, EQDSK and damped mirror; SG
   with a fixed substep budget on the slab and on Solovev; the
   compensated float32 carry) at ADJOINT_RAYS rays x ADJOINT_STEPS steps
   with trajectories, the loss and every gradient held to eager autograd
   through trace_batch (ADJOINT_RTOL of each leaf's scale), the forward
-  bit for bit (the slab kernels' config at rounding level); the default
+  bit for bit (the slab kernels' config at rounding level; EQDSK with the
+  generic pieces, whose step kernel phase 38 holds); the default
   call cuts Solovev SG to ADJOINT_CUT_DEFAULT and says so.  33: backwards whose cache
   entry was evicted before they ran
   (one loss over five step counts; a forward, four other captures, then
@@ -215,6 +220,13 @@ SLAB_VJP_RAYS = 32768   # phase 36: the slab VJP at the benchmark cell's shapes
 SLAB_VJP_STEPS = 500
 SLAB_VJP_RTOL = 1e-11   # of each gradient's scale (tests/test_torch_slab_vjp.py)
 SLAB_RTOL = 1e-9        # B1 against its plain twin, of scale (tests/test_torch_kernel_host.py)
+# phase 38: gradients of the EQDSK step's run against the generic pieces'
+# on the cell's deck, of each gradient's scale.  Its forward is at rounding
+# level, not bit for bit: on an H100 the sound runs read 5.5e-14, the
+# float32 control's live gradients are not finite, and the cell's float32
+# reference reads 3.4e-4 (PERF.md sections 2 and 6); the cell's grad_gap
+# limit lies between
+EQDSK_STEP_GRAD_RTOL = 1e-8
 TANGENT_RTOL = 1e-10    # phases 31, 32, 34: tangents of their eager scale, f64
 TANGENT_RTOL_F32 = 2e-6     # ... f32
 # phase 31 in the default call: the SG loop form on Solovev at fewer steps
@@ -1365,10 +1377,12 @@ def adjoint_phase(run, full):
     The slab kernels' configs (slab_vjp.takes) run B1's arithmetic forward:
     their counts and stops equal, the rest within SLAB_RTOL, the loss within
     LOSS_RTOL and the gradients within ADJOINT_RTOL as every other config's.
-    ``full``: every config at that size, else those of
+    The EQDSK spline toroid's (eqdsk_step.takes) runs here with the generic
+    pieces (GenericAdjoint), bit for bit; phase 38 holds its step kernel to
+    them.  ``full``: every config at that size, else those of
     ADJOINT_CUT_DEFAULT at their cut rays and steps (the line says so)."""
     from rays_tpu_torch.core.types import tree_leaves, tree_map
-    from rays_tpu_torch.tracing import fused_slab, graphed_adjoint, slab_vjp
+    from rays_tpu_torch.tracing import eqdsk_step, fused_slab, graphed_adjoint, slab_vjp
     from rays_tpu_torch.tracing.trace import RayResults, route, trace_batch, trace_rays
 
     card, dev = run.card, run.dev
@@ -1409,13 +1423,21 @@ def adjoint_phase(run, full):
         loss_and_grads(trace_batch, dataclasses.replace(cfg, nstep_max=2), params, v, st, w)
         ref_loss, ref, ref_grads, eager_ms, eager_peak = loss_and_grads(
             trace_batch, cfg, params, v, st, w)
-        c0, r0, l0 = graphed_adjoint.CAPTURES, graphed_adjoint.REPLAYS, fused_slab.LAUNCHES
-        first_ms = loss_and_grads(trace_rays, cfg, params, v, st, w)[3]
-        c1, r1 = graphed_adjoint.CAPTURES, graphed_adjoint.REPLAYS
-        loss, got, grads, graphed_ms, peak = loss_and_grads(trace_rays, cfg, params, v, st, w)
+        eqdsk = eqdsk_step.takes(cfg, params, dev)
+        tracer = GenericAdjoint() if eqdsk else trace_rays
+
+        def captures():
+            return graphed_adjoint.CAPTURES + getattr(tracer, "captures", 0)
+
+        c0, r0, l0 = captures(), graphed_adjoint.REPLAYS, fused_slab.LAUNCHES
+        first_ms = loss_and_grads(tracer, cfg, params, v, st, w)[3]
+        c1, r1 = captures(), graphed_adjoint.REPLAYS
+        loss, got, grads, graphed_ms, peak = loss_and_grads(tracer, cfg, params, v, st, w)
+        if eqdsk:
+            tracer.release()
         per_call = (r1 - r0, graphed_adjoint.REPLAYS - r1)
-        require(c1 - c0 == 1 and graphed_adjoint.CAPTURES == c1,
-                f"{name}: {graphed_adjoint.CAPTURES - c0} captures in two calls")
+        require(c1 - c0 == 1 and captures() == c1,
+                f"{name}: {captures() - c0} captures in two calls")
         require(per_call == (2 * steps,) * 2, f"{name}: replays per call {per_call}")
         require(fused_slab.LAUNCHES == l0, f"{name}: the adjoint launched B1")
         # the slab kernels' configs: the forward is B1's arithmetic, equal
@@ -1445,7 +1467,9 @@ def adjoint_phase(run, full):
                     f"{name}: gradient {i} differs by {err:.3e} of scale {scale:.3e}")
             worst = max(worst, err / scale if scale else 0.0)
             same += bool(torch.equal(g, r))
-        how = "at rounding level (the slab kernels)" if kernels else "bit for bit"
+        how = ("at rounding level (the slab kernels)" if kernels else
+               "bit for bit (the generic pieces; the step kernel: phase 38)" if eqdsk else
+               "bit for bit")
         print(f"phase 30 {name} {rays} rays x {steps} steps{cut} "
               f"{str(v.dtype).replace('torch.', '')}, route {which}: forward and loss equal to "
               f"trace_batch's {how}; {len(grads)} gradients within {worst:.3e} of scale "
@@ -1528,7 +1552,7 @@ def slab_vjp_phase(run, rays=None, steps=None):
     derivative_step(trace.trace_rays)
     first_s = time.perf_counter() - t1
     key = ("adjoint", *graphed.cache_key(cfg, p, v))
-    slab = graphed._CACHE[key].loop.slab
+    slab = graphed._CACHE[key].loop.kernels
     require(slab is not None and slab.captured["vjp"] == 1,
             "trace_rays took the generic piece, or its VJP graph holds no one slab VJP launch")
     l0 = slab_vjp.LAUNCHES
@@ -1548,7 +1572,7 @@ def slab_vjp_phase(run, rays=None, steps=None):
     class GenericVJP(ga.StaticAdjoint):
         def functions(self):
             # the generic VJP piece in place of the gate's kernel, beside its step
-            return {"step": self.step_slab, "vjp": self.vjp}
+            return {"step": self.kernels.step, "vjp": self.vjp}
 
     loop = GenericVJP(cfg, *held)
     with torch.no_grad():
@@ -1579,7 +1603,7 @@ def slab_vjp_phase(run, rays=None, steps=None):
     hp = tree_map(lambda t: t.detach().cpu(), params)
     hv, hst = v[:48].cpu(), st[:48].cpu()
     hloop = ga.StaticAdjoint(hcfg, hp, hv, hst)
-    hloop.slab = slab_vjp.SlabVJP(slab_vjp.load_host_library(), hloop)
+    hloop.kernels = slab_vjp.SlabVJP(slab_vjp.load_host_library(), hloop)
     hloop.forward(trace.initial_carry(hcfg, hp, hv, hst),
                   [t for t in tree_leaves(hp) if t.is_floating_point()])
     ops, again, live = {}, {}, 0
@@ -1687,7 +1711,7 @@ def slab_step_phase(run, rays=None, steps=None):
 
     derivative_step(trace.trace_rays)      # the capture, if phase 36 has not made it
     entry = graphed._CACHE[("adjoint", *graphed.cache_key(cfg, p, v))]
-    side = entry.loop.slab
+    side = entry.loop.kernels
     require(side is not None and side.captured["step"] == 1,
             "trace_rays took the generic step piece, or its graph holds no one slab step launch")
     l0 = slab_vjp.STEP_LAUNCHES
@@ -1722,7 +1746,7 @@ def slab_step_phase(run, rays=None, steps=None):
     class GenericStep(ga.StaticAdjoint):
         def functions(self):
             # the generic step piece in place of the gate's kernel, beside its VJP
-            return {"step": self.step, "vjp": self.vjp_slab}
+            return {"step": self.step, "vjp": self.kernels.vjp}
 
     loop = GenericStep(cfg, *held)
     with torch.no_grad():
@@ -1780,6 +1804,243 @@ def slab_step_phase(run, rays=None, steps=None):
                       "vjp_registers": vjp_regs, "vjp_spill_bytes": vjp_spill})
     return {"name": "slab_rk4_step", "route": "cuda",
             "source": "rays_tpu_torch/csrc/slab_rk4_step.cuh",
+            "replaces": "the graphed adjoint's generic step piece (tracing/graphed_adjoint.py)",
+            "launches": launches, "max_abs_err": worst, "ms": kernel_ms * steps,
+            "plain_ms": gen_fwd[0] * steps, "bound_ms": bound_ms * steps,
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations", "library_ms": None}
+
+
+class GenericAdjoint:
+    """trace_rays' adjoint graph with the generic pieces whatever the
+    kernels' gates say: a StaticAdjoint without its kernel side, captured at
+    the first call as graphed_adjoint.capture captures (WARMUP warm-up
+    iterations) and replayed through graphed_adjoint._replay.  Called as
+    trace_rays is; ``captures`` counts its captures, ``release`` gives its
+    graphs' pool back to the card."""
+
+    def __init__(self):
+        self.entry, self.captures = None, 0
+
+    def __call__(self, cfg, p, v, st, w):
+        import functools
+
+        from rays_tpu_torch.core.types import tree_leaves, tree_map
+        from rays_tpu_torch.tracing import graphed, graphed_adjoint as ga, trace
+
+        if self.entry is None:
+            held = (tree_map(torch.Tensor.detach, p), v.detach(), st)
+            loop = ga.StaticAdjoint(cfg, *held)
+            loop.kernels = None
+            with torch.no_grad():
+                carry = trace.initial_carry(cfg, *held)
+                leaves = [t for t in tree_leaves(held[0]) if t.is_floating_point()]
+                self.entry = graphed.Captured(loop, lambda: loop.load_inputs(carry, leaves),
+                                              ga.WARMUP)
+            self.captures += 1
+        entry = self.entry
+        return ga.trace_adjoint(cfg, p, v, st, w,
+                                lambda: (entry.loop, functools.partial(ga._replay, entry)))
+
+    def release(self):
+        if self.entry is not None:
+            self.entry.release()
+            self.entry = None
+
+
+def eqdsk_step_phase(run):
+    """Phase 38: the EQDSK step kernel (tracing/eqdsk_step.py,
+    csrc/eqdsk_rk4.cu) as the adjoint graph's forward piece on the benchmark
+    cell solovev_eqdsk.grad's deck and fan (seed 0: 32,768 rays x 500 RK4
+    steps, float64, summaries only): the cell's endpoint loss and its
+    gradient in every floating Params leaf through trace_rays (the kernel's
+    step piece, by the gate, and the generic VJP) against the same adjoint
+    graph with the generic pieces (GenericAdjoint): npoints and stops
+    equal, the end states within SLAB_RTOL of scale, every gradient within
+    EQDSK_STEP_GRAD_RTOL of its scale; the control: the kernel's run on the
+    deck in float32 against the same float64 answer, which must read above
+    that limit; the device ms per step of both forwards from the spans' CUDA
+    events and the kernel's own from the profiler, against its bound: the
+    operations of a live ray step, counted on the host build (64 rays spread
+    over the fan, every step; eqdsk_step.count_ops), times the run's live ray
+    steps at the published FP64 peak, against the carry read and written and
+    the stack row written at the memory rate; its launches (those captured
+    into the step graph, at each replay: ``eqdsk_step.STEP_LAUNCHES``; the
+    profiler's count); its registers and spills in both precisions.
+    Returns the kernels line's row."""
+    import contextlib
+
+    from benchmark.lib import common, inputs
+    from rays_tpu_torch import native
+    from rays_tpu_torch.core.types import tree_leaves, tree_map
+    from rays_tpu_torch.tracing import eqdsk_step, graphed, graphed_adjoint as ga, trace
+    from rays_tpu_torch.utils import op_rates, spans
+
+    card, dev = run.card, run.dev
+    reports = {}
+    for dtype in (torch.float64, torch.float32):
+        lib, log = eqdsk_step.load_library(dtype, 2)
+        m = re.search(r"eqdsk_rk4_step_kernel.*?(\d+) bytes spill stores.*?Used (\d+) registers",
+                      log, re.S)
+        require(m, f"no sm_90a ptxas report of eqdsk_rk4_step_kernel in the build log:\n{log}")
+        reports[dtype] = (int(m[2]), int(m[1]), next(
+            (line.strip() for line in log.splitlines() if "Used" in line and "registers" in line),
+            ""))
+        if dtype == torch.float64:
+            occ = native.occupancy(lib.rays_eqdsk_step_occupancy)
+    require(occ["blocks_per_sm"] >= 1, f"the EQDSK step cannot launch: {occ}")
+    regs, spill, ptxas = reports[torch.float64]
+    regs32, spill32, ptxas32 = reports[torch.float32]
+    print(f"phase 38 build: eqdsk_rk4_step_kernel f64 S=2: ptxas {regs} registers, {spill} B "
+          f"spilled ({ptxas}); granted {occ['blocks_per_sm']} blocks x {occ['threads']} threads "
+          f"= {occ['warps_per_sm']} warps per SM, {occ['local_bytes']} B local; f32 S=2: "
+          f"{regs32} registers, {spill32} B spilled ({ptxas32})")
+
+    cell = common.Cell("solovev_eqdsk.grad")
+    cfg, params, _, v, st, w = inputs.program(cell, 0, dev, lambda name: contextlib.nullcontext())
+    steps, rays = cfg.nstep_max, v.shape[0]
+    require(eqdsk_step.takes(cfg, params, dev) and trace.route(cfg, True, dev) == "adjoint",
+            "the cell's config takes the adjoint graph with the EQDSK step")
+
+    def derivative_step(tracer, p, v, w):
+        """(gradients, results, forward ms, backward ms per outer step)."""
+        leaves = [t for t in tree_leaves(p) if t.is_floating_point()]
+        spans.clear()
+        with spans.recording():
+            res = tracer(cfg, p, v, st, w)
+            loss = (res.end_ray_vec[:, 0:3] ** 2 * w[:, None]).sum()
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+            torch.cuda.synchronize()
+        ms = {r.name: r.device_ms for r in spans.records()}
+        spans.clear()
+        return (grads, res, ms["rays.adjoint.forward"] / steps,
+                ms["rays.adjoint.backward"] / steps)
+
+    def with_grad(dtype):
+        return tree_map(lambda t: (t.detach().to(dtype, copy=True).requires_grad_(True)
+                                   if t.is_floating_point() else t), params)
+
+    p = with_grad(torch.float64)
+    derivative_step(trace.trace_rays, p, v, w)      # the capture
+    key = ("adjoint", *graphed.cache_key(cfg, p, v))
+    entry = graphed._CACHE[key]
+    side = entry.loop.kernels
+    require(isinstance(side, eqdsk_step.EqdskStep) and side.captured["step"] == 1,
+            "trace_rays took the generic step piece, or its graph holds no one EQDSK step launch")
+    l0 = eqdsk_step.STEP_LAUNCHES
+    runs = [derivative_step(trace.trace_rays, p, v, w) for _ in range(2)]
+    launches = (eqdsk_step.STEP_LAUNCHES - l0) // len(runs)
+    require(launches == steps, f"{launches} launches of the EQDSK step a forward")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        derivative_step(trace.trace_rays, p, v, w)
+    found = [e for e in prof.key_averages() if "eqdsk_rk4_step_kernel" in e.key]
+    traced = sum(e.count for e in found)
+    require(traced == steps, f"the profiler saw {traced} EQDSK step kernels in a forward")
+    dev_us = sum(getattr(e, "device_time_total", 0) or e.cuda_time_total for e in found)
+    kernel_ms = dev_us / 1e3 / traced
+    grads, res = runs[0][0], runs[0][1]
+    row = sum(t.element_size() * t[0].numel() for t in entry.loop.carry)
+    graphed._CACHE.pop(key).release()     # its stack and pool back to the card
+    del entry, side
+
+    # the generic pieces, captured alike
+    generic = GenericAdjoint()
+    gen_runs = [derivative_step(generic, p, v, w) for _ in range(2)]
+    generic.release()
+    ref, gen_res = gen_runs[0][0], gen_runs[0][1]
+    require(torch.equal(gen_res.npoints, res.npoints)
+            and torch.equal(gen_res.stop_flag, res.stop_flag),
+            "phase 38: npoints or stops differ from the generic step's")
+    scale = gen_res.end_ray_vec.detach().abs().amax(0).clamp_min(1e-12)
+
+    def end_gap(r):
+        return float(((r.end_ray_vec.detach().double() - gen_res.end_ray_vec.detach()).abs()
+                      / scale).max())
+
+    def grad_gap(gs):
+        """(the worst leaf's gap over its scale, of the finite leaves whose
+        scale is not zero; the leaves that are not finite or not zero where
+        the answer's gradient is)."""
+        worst, bad = 0.0, 0
+        for g, r in zip(gs, ref):
+            s_ = float(r.abs().max()) if r.numel() else 0.0
+            err = float((g.double() - r).abs().max()) if r.numel() else 0.0
+            if not bool(torch.isfinite(g).all()) or (not s_ and err):
+                bad += 1
+            elif s_:
+                worst = max(worst, err / s_)
+        return worst, bad
+
+    gap = end_gap(res)
+    require(gap <= SLAB_RTOL, f"phase 38: end states {gap:.3e} of scale from the generic step's")
+    worst, bad = grad_gap(grads)
+    require(worst <= EQDSK_STEP_GRAD_RTOL and not bad,
+            f"phase 38: gradients {worst:.3e} of scale from the generic step run's, {bad} leaves "
+            "not finite or not zero")
+
+    # the control: the kernel's run in float32 (its own library) against
+    # the same float64 answer must read above the limit
+    p32 = with_grad(torch.float32)
+    ctl_grads, ctl_res = derivative_step(trace.trace_rays, p32, v.float(), w.float())[:2]
+    graphed._CACHE.pop(("adjoint", *graphed.cache_key(cfg, p32, v.float()))).release()
+    control, ctl_bad = grad_gap(ctl_grads)
+    ctl_moved = int((ctl_res.npoints != gen_res.npoints).sum())
+    require(control > EQDSK_STEP_GRAD_RTOL or ctl_bad,
+            f"phase 38: the float32 control reads {control:.3e}, within the limit")
+
+    # the bound: the operations of a live ray step on the counting type
+    hcfg, idx = cfg, torch.linspace(0, rays - 1, 64, device=dev).long()
+    hp = tree_map(lambda t: t.detach().cpu(), params)
+    hv, hst = v[idx].cpu(), st[idx].cpu()
+    hloop = ga.StaticAdjoint(hcfg, hp, hv, hst)
+    hloop.kernels = eqdsk_step.EqdskStep(eqdsk_step.load_host_library(), hloop)
+    hloop.load_inputs(trace.initial_carry(hcfg, hp, hv, hst),
+                      [t for t in tree_leaves(hp) if t.is_floating_point()])
+    ops, live = {}, 0
+    for k in range(steps):
+        hloop.k.fill_(k)
+        o, n = eqdsk_step.count_ops(hloop)
+        ops = {key_: ops.get(key_, 0) + o[key_] for key_ in o}
+        live += n
+    require(live > 0, "phase 38: no live ray step in the host count")
+    per_live = {k: c / live for k, c in ops.items()}
+    live_steps = float((res.npoints.double() - 1).sum())
+    ops_ms = sum(per_live.values()) * live_steps / op_rates.PEAK_FLOPS[torch.float64] * 1e3
+    ops_ms /= steps
+    bytes_ms = 3 * row * rays / op_rates.HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+
+    fwd = sorted(r[2] for r in runs)
+    bwd = sorted(r[3] for r in runs)
+    gen_fwd = sorted(r[2] for r in gen_runs)
+    gen_bwd = sorted(r[3] for r in gen_runs)
+    print(f"phase 38 EQDSK step, cell solovev_eqdsk.grad seed 0, {rays} rays x {steps} steps "
+          f"f64: npoints and stops equal to the generic step's ({live_steps:.0f} live ray "
+          f"steps), end states within {gap:.3e} of scale (bound {SLAB_RTOL}); {len(grads)} "
+          f"gradients through the generic VJP within {worst:.3e} of scale of the generic "
+          f"pieces' (bound {EQDSK_STEP_GRAD_RTOL}; the float32 control reads {control:.3e} on "
+          f"{len(ctl_grads) - ctl_bad} leaves, {ctl_bad} not finite or not zero where the answer "
+          f"is, its end states {end_gap(ctl_res):.3e}, {ctl_moved} rays' npoints moved); "
+          f"{launches} launches a forward ({traced} in the profiler's trace); forward "
+          f"{fwd[0]:.5f}-{fwd[-1]:.5f} ms per outer step (generic {gen_fwd[0]:.4f}-"
+          f"{gen_fwd[-1]:.4f}, x{gen_fwd[0] / fwd[-1]:.1f}), the kernel alone {kernel_ms:.5f} ms; "
+          f"a live ray step does {sum(per_live.values()):.1f} operations ("
+          + ", ".join(f"{k} {c:.1f}" for k, c in per_live.items() if c)
+          + f"; host count, {live} live steps of 64 rays): bound {ops_ms:.6f} ms a step by "
+          f"operations, {bytes_ms:.6f} by bytes ({3 * row} B a ray), share "
+          f"{bound_ms / kernel_ms:.4f}; backward {bwd[0]:.4f}-{bwd[-1]:.4f} (generic pieces "
+          f"{gen_bwd[0]:.4f}-{gen_bwd[-1]:.4f}) on {card}")
+    run.paths.append({"name": "eqdsk_step_training_step_f64", "route": "adjoint", "rays": rays,
+                      "steps": steps, "forward_ms_per_step": fwd,
+                      "generic_forward_ms_per_step": gen_fwd, "backward_ms_per_step": bwd,
+                      "generic_backward_ms_per_step": gen_bwd, "kernel_ms_per_step": kernel_ms,
+                      "worst_grad_rel": worst, "control_grad_rel": control,
+                      "control_bad_leaves": ctl_bad,
+                      "end_gap_generic": gap, "registers": regs, "spill_bytes": spill,
+                      "registers_f32": regs32, "spill_bytes_f32": spill32,
+                      "launches": launches, "ops_per_live_step": per_live,
+                      "bound_ms_per_step": bound_ms})
+    return {"name": "eqdsk_rk4_step", "route": "cuda",
+            "source": "rays_tpu_torch/csrc/eqdsk_rk4.cuh",
             "replaces": "the graphed adjoint's generic step piece (tracing/graphed_adjoint.py)",
             "launches": launches, "max_abs_err": worst, "ms": kernel_ms * steps,
             "plain_ms": gen_fwd[0] * steps, "bound_ms": bound_ms * steps,
@@ -3176,15 +3437,18 @@ def spline_example_files(write_example, directory):
 
 def build_kernels():
     """Build (unless built) every kernel library of the checkout: the three
-    slab RK4 variants and the op-rate kernels, each source by its own nvcc,
-    all started together.  Returns the seconds it took."""
-    from rays_tpu_torch.tracing import fused_slab, slab_vjp
+    slab RK4 variants, the slab VJP and step, the EQDSK step (f64 and f32)
+    and the op-rate kernels, each source by its own nvcc, all started
+    together.  Returns the seconds it took."""
+    from rays_tpu_torch.tracing import eqdsk_step, fused_slab, slab_vjp
     from rays_tpu_torch.utils import op_rates
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         for f in [pool.submit(fused_slab.load_libraries), pool.submit(op_rates.load_library),
-                  pool.submit(slab_vjp.load_library, torch.float64, 2)]:
+                  pool.submit(slab_vjp.load_library, torch.float64, 2),
+                  pool.submit(eqdsk_step.load_library, torch.float64, 2),
+                  pool.submit(eqdsk_step.load_library, torch.float32, 2)]:
             f.result()
     return time.perf_counter() - t0
 
@@ -3230,8 +3494,8 @@ def main(argv=None):
     every = args.group is None
     # every kernel library of the checkout, one nvcc per source, side by side
     run.build_s = build_kernels()
-    print(f"phase 1 build: slab_rk4 (3 variants), slab_rk4_vjp (f64, S=2) and op_rates for "
-          f"sm_90a in {run.build_s:.1f} s (side by side)")
+    print(f"phase 1 build: slab_rk4 (3 variants), slab_rk4_vjp (f64, S=2), eqdsk_rk4 (f64 and "
+          f"f32, S=2) and op_rates for sm_90a in {run.build_s:.1f} s (side by side)")
 
     kernels = kernel_phases(run) if "kernel" in groups else None
     if "graph" in groups:
@@ -3241,10 +3505,11 @@ def main(argv=None):
         registered_model_phase(run)
         jacfwd_columns_phase(run, closed_columns)
         del closed_columns
-    vjp_kernel = step_kernel = None
+    vjp_kernel = step_kernel = eqdsk_kernel = None
     if "adjoint" in groups:
         vjp_kernel = slab_vjp_phase(run)
         step_kernel = slab_step_phase(run)
+        eqdsk_kernel = eqdsk_step_phase(run)
         adjoint_phase(run, not every)
         eviction_phase(run)
         training_phase(run)
@@ -3284,7 +3549,7 @@ def main(argv=None):
             "library_ms": None,
         } for name, (launches, err, (t_kern, t_plain), (bound, bound_by))
             in ((k, kernels[k]) for k in ("slab_rk4", "slab_rk4_damped"))]
-    b1 += [k for k in (vjp_kernel, step_kernel) if k is not None]
+    b1 += [k for k in (vjp_kernel, step_kernel, eqdsk_kernel) if k is not None]
     if b1 or op_kernels:
         print(json.dumps({"kernels": b1 + op_kernels}))
     print(json.dumps({"ok": True, "device": {

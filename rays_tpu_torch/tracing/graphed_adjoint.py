@@ -34,8 +34,9 @@ static buffers and adds its own):
   ``jax.checkpoint`` keeps), then runs ``trace.step`` as the graph route
   does.  So the forward results are bit for bit those of the graph route
   without gradients, except on the card for the slab kernel's
-  configurations without damping (below).  The stack takes (2 nv + 3) 8 +
-  12 bytes per ray and step in float64.
+  configurations without damping and for the spline toroid's with a cell
+  table (below).  The stack takes (2 nv + 3) 8 + 12 bytes per ray and
+  step in float64.
 * Backward: the incoming cotangents are copied into static buffers (zeros
   where none came) and the ``"vjp"`` piece is replayed ``nstep_max``
   times.  It steps the device index down by one, reads that step's carry
@@ -47,21 +48,31 @@ static buffers and adds its own):
   gradient is added into its accumulator.  Recomputing inside the piece
   keeps the backward of each operation on the stream of its forward,
   which is the capture stream.
-* On the card, the slab kernel's configurations without damping
-  (``slab_vjp.takes``) take another ``"vjp"`` piece: one launch of the
-  hand-written VJP of the slab step (tracing/slab_vjp.py), which reads the
-  same stack and the Params values packed on the device at each run's
-  load, writes the carry cotangent in place and adds the Params
+* On the card a config that a hand-written kernel's gate takes has a
+  kernel side (tracing/kernel_side.py, ``StaticAdjoint.kernels``), whose
+  pieces replace the generic ones.  The slab kernel's configurations
+  without damping (``slab_vjp.takes``) take another ``"vjp"`` piece: one
+  launch of the hand-written VJP of the slab step (tracing/slab_vjp.py),
+  which reads the same stack and the Params values packed on the device at
+  each run's load, writes the carry cotangent in place and adds the Params
   cotangents into a per-ray accumulator that the backward sums into the
-  leaves' accumulators once, after the sweep.  They take another
-  ``"step"`` piece too: one launch of the hand-written slab step (the
-  same library), which writes the stack and steps the carry in place
-  with the slab kernel's arithmetic, and the step index's increment.
-  Their forward is then what the no-gradient route (the slab kernel,
-  tracing/fused_slab.py) computes, at rounding level from
-  ``trace.step``'s, and the VJP differentiates that arithmetic.  The
-  generic pieces are their plain versions; every other configuration, and
-  the CPU, keep them.
+  leaves' accumulators once, after the sweep.  They take another ``"step"``
+  piece too: one launch of the hand-written slab step (the same library),
+  which writes the stack and steps the carry in place with the slab
+  kernel's arithmetic, and the step index's increment.  Their forward is
+  then what the no-gradient route (the slab kernel, tracing/fused_slab.py)
+  computes, at rounding level from ``trace.step``'s, and the VJP
+  differentiates that arithmetic.  The generic pieces are their plain
+  versions; every other configuration, and the CPU, keep them.
+* On the card, the axisymmetric toroid whose psi spline has a cell table
+  (``eqdsk_step.takes``: RK4, cold, undamped, the profile models the kernel
+  holds) takes another ``"step"`` piece: one launch of the hand-written
+  EQDSK step (tracing/eqdsk_step.py), which writes the stack and steps the
+  carry in place, reading the Params packed on the device at each run's
+  load and the cell table in place, and the step index's increment.  Its
+  ``"vjp"`` piece stays the generic one, which recomputes ``trace.step``
+  at the carries the kernel wrote.  Their forward is then the kernel's
+  arithmetic, at rounding level from ``trace.step``'s.
 * ``cfg.remat_steps`` changes only the plain route's memory: the VJP
   always recomputes its step.
 
@@ -78,9 +89,10 @@ forward on the same entry came in between, or the entry is a new
 capture), it first replays its own forward from its saved inputs.
 
 ``CAPTURES`` counts the configurations captured, ``REPLAYS`` the step
-and VJP replays; a replay of a VJP graph adds to ``slab_vjp.LAUNCHES``
-the slab VJP's launches captured into it, a replay of a step graph to
-``slab_vjp.STEP_LAUNCHES`` the slab step's.  The spans of utils/spans.py,
+and VJP replays; a replay adds to a kernel side's counters the launches
+captured into its graph (``slab_vjp.LAUNCHES`` the slab VJP's,
+``slab_vjp.STEP_LAUNCHES`` the slab step's, ``eqdsk_step.STEP_LAUNCHES``
+the EQDSK step's).  The spans of utils/spans.py,
 each stamped with CUDA events: ``rays.adjoint.forward`` around the step
 replays, ``rays.adjoint.backward`` around the VJP replays and
 ``rays.adjoint.reforward`` around a forward that a backward replays.
@@ -98,7 +110,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from rays_tpu_torch.core.types import has_tangent, tree_leaves, tree_map
-from rays_tpu_torch.tracing import graphed, rk45, slab_vjp, trace
+from rays_tpu_torch.tracing import eqdsk_step, graphed, rk45, slab_vjp, trace
 from rays_tpu_torch.utils import spans
 
 WARMUP = 3          # warm-up iterations (step and VJP) before the capture
@@ -136,13 +148,16 @@ class StaticAdjoint(graphed.StaticLoop):
     one configuration and one set of input shapes: the pieces ``"step"``
     and ``"vjp"``.  Each reads and writes the static buffers only.
 
-    Both pieces are one of two, fixed here from the config and the device
-    (``slab_vjp.takes``): on CUDA, the slab kernel's configurations without
-    damping take the hand-written kernels, the slab step and the slab VJP
-    (tracing/slab_vjp.py); every other configuration, and the CPU, the
-    generic ``trace.step`` and its recompute under autograd, which are the
-    kernels' plain versions.  ``slab`` holds the kernels' side
-    (``slab_vjp.SlabVJP``) or None."""
+    The pieces are fixed here from the config, the Params and the device:
+    on CUDA, the slab kernel's configurations without damping
+    (``slab_vjp.takes``) take the hand-written kernels, the slab step and
+    the slab VJP (tracing/slab_vjp.py); the spline toroid's configurations
+    with a cell table (``eqdsk_step.takes``) take the hand-written EQDSK
+    step (tracing/eqdsk_step.py) and the generic VJP; every other
+    configuration, and the CPU, the generic ``trace.step`` and its
+    recompute under autograd, which are the kernels' plain versions.
+    ``kernels`` holds the side of the first gate that takes the config
+    (tracing/kernel_side.py), or None."""
 
     def __init__(self, cfg, params, v0, status0):
         check_capturable(cfg)
@@ -159,13 +174,18 @@ class StaticAdjoint(graphed.StaticLoop):
                        if t.is_floating_point()]
         self.acc = [torch.zeros_like(t) for t in self.leaves]
         self.run_id = 0     # no forward yet
-        self.slab = (slab_vjp.SlabVJP(slab_vjp.load_library(v0.dtype, cfg.ns)[0], self)
-                     if slab_vjp.takes(cfg, v0.device) else None)
+        self.kernels = None
+        if slab_vjp.takes(cfg, v0.device):
+            self.kernels = slab_vjp.SlabVJP(slab_vjp.load_library(v0.dtype, cfg.ns)[0], self)
+        elif eqdsk_step.takes(cfg, self.params, v0.device):
+            self.kernels = eqdsk_step.EqdskStep(eqdsk_step.load_library(v0.dtype, cfg.ns)[0],
+                                                self)
 
     def functions(self):
-        if self.slab is None:
-            return {"step": self.step, "vjp": self.vjp}
-        return {"step": self.step_slab, "vjp": self.vjp_slab}
+        pieces = {"step": self.step, "vjp": self.vjp}
+        if self.kernels is not None:
+            pieces.update({name: getattr(self.kernels, name) for name in self.kernels.PIECES})
+        return pieces
 
     def step(self):
         """The carry into the stack at k, then one whole outer step."""
@@ -173,12 +193,6 @@ class StaticAdjoint(graphed.StaticLoop):
         for buf, t in zip(self.stack, self.carry):
             buf.index_copy_(0, at, t[None])
         super().step()
-
-    def step_slab(self):
-        """The carry into the stack at k and one whole outer step as one
-        launch of the slab step kernel, then k stepped up."""
-        self.slab.launch("step")
-        self.k.add_(1)
 
     def vjp(self):
         """The VJP of outer step k - 1 (k the device index, stepped down):
@@ -216,13 +230,6 @@ class StaticAdjoint(graphed.StaticLoop):
         finally:
             rk45.stats = held
 
-    def vjp_slab(self):
-        """The VJP of outer step k - 1 as one launch of the slab VJP kernel:
-        the carry cotangent in place, the Params cotangents into its
-        per-ray accumulator (summed into ``acc`` after the sweep)."""
-        self.k.sub_(1)
-        self.slab.launch("vjp")
-
     # --- a run ------------------------------------------------------------
 
     def load_inputs(self, carry, leaves):
@@ -233,8 +240,8 @@ class StaticAdjoint(graphed.StaticLoop):
                 buf.copy_(t)
             for buf, t in zip(self.leaves, leaves):
                 buf.copy_(t)
-            if self.slab is not None:
-                self.slab.pack()
+            if self.kernels is not None:
+                self.kernels.pack()
             self.k.zero_()
             if self.traj is not None:
                 self.traj[:, 0].copy_(carry[0])
@@ -279,16 +286,16 @@ class StaticAdjoint(graphed.StaticLoop):
                     buf.copy_(c)
             for acc in self.acc:
                 acc.zero_()
-            if self.slab is not None:
-                self.slab.acc.zero_()
+            if self.kernels is not None:
+                self.kernels.start_backward()
             self.k.fill_(self.cfg.nstep_max)
         vjp = self.functions()["vjp"] if launch is None else (lambda: launch("vjp"))
         with spans.span("rays.adjoint.backward", self.k.device, call):
             for _ in range(self.cfg.nstep_max):
                 vjp()
         with torch.no_grad():
-            if self.slab is not None:
-                self.slab.reduce(self.acc)
+            if self.kernels is not None:
+                self.kernels.finish_backward(self.acc)
             grads = [c.clone() for c in self.cot]
             if self.traj is not None:
                 # the trajectory's first row is v0, which enters as carry v
@@ -408,6 +415,6 @@ def _replay(entry, name):
     global REPLAYS
     entry.launch(name)
     REPLAYS += 1
-    if entry.loop.slab is not None:
-        # the launches that the slab kernels made into the captured graph
-        entry.loop.slab.replayed(name)
+    if entry.loop.kernels is not None:
+        # the launches that the kernels made into the captured graph
+        entry.loop.kernels.replayed(name)

@@ -12,8 +12,8 @@ thread per ray reads the ray's carry before the step from the stack that
 the adjoint graph keeps, recomputes the step with the slab kernel's
 physics, runs it backwards by hand, writes the float carry's cotangents
 back in place and adds the cotangents of the Params values it reads into
-a (rows, B) accumulator.  ``SlabVJP.reduce`` sums that over rays into the
-leaves' accumulators once per backward.
+a (rows, B) accumulator.  ``SlabVJP.finish_backward`` sums that over
+rays into the leaves' accumulators once per backward.
 
 The generic forward piece copies the carry into the stack
 (``index_copy_``) and runs ``trace.step``: about 1,250 library kernels a
@@ -25,7 +25,7 @@ writes the carry after the step in place (with trajectories, row k + 1
 too).  Both kernels read the Params from one packed device vector that
 ``SlabVJP.pack`` fills at each run's load, in the slab kernel's layout
 (``fused_slab.run_rows``), so a captured launch reads each run's values
-and nothing is read on the host.  Their plain versions
+and nothing is read on the host (tracing/kernel_side.py).  Their plain versions
 are the generic pieces: the tests hold the same bodies, built with g++
 (``csrc/slab_rk4_vjp_host.cpp``), to them on the CPU.
 
@@ -39,8 +39,8 @@ the generic pieces.  A failed build or launch raises; nothing falls
 back.  ``LAUNCHES`` (the VJP) and ``STEP_LAUNCHES`` (the step) count the
 kernels' launches in this process, not the host build's: those made
 outside a capture here, and for a captured piece the launches that
-``SlabVJP.launch`` made into its graph (``captured``), added at each
-replay (``SlabVJP.replayed``, from ``graphed_adjoint._replay``).
+``SlabVJP.launch`` made into its graph, added at each replay
+(``kernel_side.KernelSide``).
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ import torch
 
 from rays_tpu_torch import native
 from rays_tpu_torch.tracing import fused_slab
+from rays_tpu_torch.tracing.kernel_side import CARRY, KernelSide, ptr
 
 # launches of the CUDA kernels in this process (not of the host build)
 LAUNCHES = 0        # the VJP
@@ -77,15 +78,12 @@ def _args_type(ctype):
     return SlabVjpArgs
 
 
-_CARRY = ("v", "f1", "st1", "hstate", "status", "nstep", "end_res", "max_res")
-
-
 def _step_args_type(ctype):
     p = ctypes.c_void_p
 
     class SlabStepArgs(ctypes.Structure):
-        _fields_ = ([(n, p) for n in ("params", "k", *_CARRY)]
-                    + [(f"stack_{n}", p) for n in _CARRY]
+        _fields_ = ([(n, p) for n in ("params", "k", *CARRY)]
+                    + [(f"stack_{n}", p) for n in CARRY]
                     + [("traj", p), ("resid", p), ("B", ctypes.c_int64),
                        ("nstep_max", ctypes.c_int32),
                        ("codes", ctypes.c_int32 * fused_slab.N_CODES)])
@@ -154,38 +152,24 @@ def load_host_library():
     return lib
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+class SlabVJP(KernelSide):
+    """The slab kernels' side of one ``StaticAdjoint`` (``loop``): the
+    packed Params vector (``fused_slab.run_rows`` of the loop's static
+    leaves), the VJP's (rows, B) accumulator over its first rows, and each
+    piece's launch arguments: both pieces are its kernels'."""
 
-
-class SlabVJP:
-    """The kernels' side of one ``StaticAdjoint`` (``loop``): the packed
-    Params vector (``fused_slab.run_rows`` of the loop's static leaves), the
-    VJP's (rows, B) accumulator over its first rows and each piece's launch
-    arguments, all on the loop's static buffers, so that a captured launch
-    reads the values of each run.  ``lib``: a bound library whose code can
-    address the loop's tensors (the CUDA library, or the host build on the
-    CPU)."""
+    PIECES = ("step", "vjp")
 
     def __init__(self, lib, loop):
         cfg, p = loop.cfg, loop.params
         if not fused_slab.supported(cfg) or cfg.damping_model != "no_damp":
             raise ValueError("the slab VJP takes the slab kernel's configs without damping")
-        v = loop.carry[0]
-        B, dt, dev = v.shape[0], v.dtype, v.device
-        for name, t in zip(_CARRY, loop.carry):
-            want = torch.int32 if name in ("st1", "status", "nstep") else dt
-            if t.dtype != want or not t.is_contiguous():
-                raise ValueError(f"carry {name}: {t.dtype}, want a contiguous {want}")
-        self.lib, self.ns = lib, cfg.ns
-        # launches made into a CUDA graph's capture, by piece
-        self.captured = {"step": 0, "vjp": 0}
         # the packed vector's sources, views of the leaves' values outside
         # autograd (a view with a grad_fn would hold each leaf's gradient
         # accumulator on this stream), and for each leaf the VJP
         # differentiates: its index in loop.leaves, its first and past-last
         # rows
-        self.sources = fused_slab.run_rows(cfg, p)
+        super().__init__(lib, loop, fused_slab.run_rows(cfg, p))
         n_diff = len(fused_slab.ROWS) + len(fused_slab.SPECIES_ROWS)
         differentiated = fused_slab.run_leaves(p)[:n_diff]
         index = {id(t): i for i, t in enumerate(loop.leaves)}
@@ -193,68 +177,51 @@ class SlabVJP:
         for t, src in zip(differentiated, self.sources):
             self.leaf_of.append((index[id(t)], start, start + src.numel()))
             start += src.numel()
-        self.params = torch.zeros((sum(t.numel() for t in self.sources),), dtype=dt, device=dev)
-        self.acc = torch.zeros((start, B), dtype=dt, device=dev)
+        v = loop.carry[0]
+        B, dt = v.shape[0], v.dtype
+        self.acc = torch.zeros((start, B), dtype=dt, device=v.device)
         stack, carry = loop.stack, loop.carry
         cot_v, cot_f1, _, cot_end, cot_max = loop.cot
         models = dict(B=B, nstep_max=cfg.nstep_max, codes=fused_slab.model_codes(cfg))
         self.args = {
             "vjp": _ARGS["vjp"][0][dt](
-                params=_ptr(self.params), k=_ptr(loop.k), stack_v=_ptr(stack[0]),
-                stack_f1=_ptr(stack[1]), stack_nstep=_ptr(stack[5]), stack_end=_ptr(stack[6]),
-                stack_max=_ptr(stack[7]), nstep_out=_ptr(carry[5]), end_out=_ptr(carry[6]),
-                cot_v=_ptr(cot_v), cot_f1=_ptr(cot_f1), cot_end=_ptr(cot_end),
-                cot_max=_ptr(cot_max), traj_cot=_ptr(loop.traj_cot),
-                resid_cot=_ptr(loop.resid_cot), acc=_ptr(self.acc), **models),
+                params=ptr(self.params), k=ptr(loop.k), stack_v=ptr(stack[0]),
+                stack_f1=ptr(stack[1]), stack_nstep=ptr(stack[5]), stack_end=ptr(stack[6]),
+                stack_max=ptr(stack[7]), nstep_out=ptr(carry[5]), end_out=ptr(carry[6]),
+                cot_v=ptr(cot_v), cot_f1=ptr(cot_f1), cot_end=ptr(cot_end),
+                cot_max=ptr(cot_max), traj_cot=ptr(loop.traj_cot),
+                resid_cot=ptr(loop.resid_cot), acc=ptr(self.acc), **models),
             "step": _ARGS["step"][0][dt](
-                params=_ptr(self.params), k=_ptr(loop.k),
-                **{n: _ptr(t) for n, t in zip(_CARRY, carry)},
-                **{f"stack_{n}": _ptr(t) for n, t in zip(_CARRY, stack)},
-                traj=_ptr(loop.traj), resid=_ptr(loop.resid), **models)}
+                params=ptr(self.params), k=ptr(loop.k),
+                **{n: ptr(t) for n, t in zip(CARRY, carry)},
+                **{f"stack_{n}": ptr(t) for n, t in zip(CARRY, stack)},
+                traj=ptr(loop.traj), resid=ptr(loop.resid), **models)}
         self.fn = {piece: getattr(lib, f"rays_slab_{piece}_{_SUFFIX[dt]}")
                    for piece in self.args}
-        self.device = dev
 
-    def pack(self):
-        """The Params values into the packed vector, from the loop's static
-        leaves, on the device (no host read)."""
-        torch.cat(self.sources, out=self.params)
+    def vjp(self):
+        """The VJP of outer step k - 1 as one launch (k the device index,
+        stepped down first): the carry cotangent in place, the Params
+        cotangents into the per-ray accumulator."""
+        self.k.sub_(1)
+        self.launch("vjp")
 
-    def launch(self, piece):
-        """On the current stream, ``"step"``: outer step k (the loop's
-        device index, not stepped here); ``"vjp"``: the VJP of outer step k
-        (already stepped down).  Counted in ``STEP_LAUNCHES`` or
-        ``LAUNCHES``, or, made into a capture, in ``captured``."""
-        stream = (torch.cuda.current_stream(self.device).cuda_stream
-                  if self.device.type == "cuda" else None)
-        rc = self.fn[piece](ctypes.addressof(self.args[piece]), self.ns, stream)
-        if rc != 0:
-            raise RuntimeError(f"slab {piece} launch failed with error {rc}")
-        if self.device.type != "cuda":
-            return
-        if torch.cuda.is_current_stream_capturing():
-            self.captured[piece] += 1
+    def count(self, piece, n):
+        global LAUNCHES, STEP_LAUNCHES
+        if piece == "step":
+            STEP_LAUNCHES += n
         else:
-            _count(piece, 1)
+            LAUNCHES += n
 
-    def replayed(self, piece):
-        """Count the launches captured into a piece's graph, at its replay."""
-        _count(piece, self.captured[piece])
+    def start_backward(self):
+        self.acc.zero_()
 
-    def reduce(self, acc):
+    def finish_backward(self, acc):
         """The accumulator summed over rays into the leaves' accumulators
         ``acc`` (``loop.acc``, zeroed by the caller)."""
         sums = self.acc.sum(1)
         for leaf, a, b in self.leaf_of:
             acc[leaf].view(-1)[:b - a].add_(sums[a:b])
-
-
-def _count(piece, n):
-    global LAUNCHES, STEP_LAUNCHES
-    if piece == "step":
-        STEP_LAUNCHES += n
-    else:
-        LAUNCHES += n
 
 
 def count_ops(loop):
@@ -266,8 +233,9 @@ def count_ops(loop):
     What the VJP needs is the first less the second: one forward step
     and its reverse.  The cotangents and accumulators are written as a
     launch writes them."""
-    s = loop.slab
-    if s is None or s.device.type != "cpu" or s.params.dtype != torch.float64:
+    s = loop.kernels
+    if (not isinstance(s, SlabVJP) or s.device.type != "cpu"
+            or s.params.dtype != torch.float64):
         raise ValueError("count_ops takes a CPU float64 loop with the host build's slab VJP")
     k, n = int(loop.k), loop.cfg.nstep_max
     after = loop.carry[5] if k + 1 >= n else loop.stack[5][k + 1]

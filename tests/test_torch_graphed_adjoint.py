@@ -23,7 +23,8 @@ graphs replay.  Held:
 * the "vjp" piece: no host read, no copy across devices, no autograd
   node whose backward reads the host (test_torch_graphed.py's audits);
   and the "step" and "vjp" pieces of the slab kernels (tracing/slab_vjp.py,
-  on their host build) alike;
+  on their host build) and the EQDSK step kernel's "step" piece
+  (tracing/eqdsk_step.py, on its host build) alike;
 * one reused loop answers two forwards with other Params, whose
   backwards run after both, each with its own gradients;
 * the dispatch: the adjoint graph on the card with reverse-mode
@@ -51,7 +52,8 @@ from rays_tpu_torch import convert, examples as tex, run as trun
 from rays_tpu_torch.config import schema as tschema
 from rays_tpu_torch.core.types import tree_leaves, tree_map
 from rays_tpu_torch.models import base as tbase
-from rays_tpu_torch.tracing import fused_slab, graphed, graphed_adjoint as ga, slab_vjp
+from rays_tpu_torch.tracing import eqdsk_step, fused_slab, graphed, graphed_adjoint as ga
+from rays_tpu_torch.tracing import slab_vjp
 from rays_tpu_torch.tracing import trace as ttrace
 from rays_tpu_torch.tracing.capture_audit import HOST_READING_BACKWARDS, BackwardAudit, PieceAudit
 from test_axisym import AXISYM_TMPL
@@ -278,17 +280,21 @@ def test_mirror_loss_matches_jax_grad(tmp_path):
 # --- what the pieces issue ----------------------------------------------------
 
 
-@pytest.mark.parametrize("name", list(CASES) + ["slab_rk4_kernels"])
+@pytest.mark.parametrize("name", list(CASES) + ["slab_rk4_kernels", "eqdsk_rk4_kernel"])
 def test_vjp_piece_reads_nothing_on_the_host(setups, name):
     kernels = name == "slab_rk4_kernels"
-    cfg, params, v0, st, pwr = _case(setups, CASES["slab_rk4" if kernels else name],
-                                     save_trajectory=True, nstep_max=3)
+    base_case = {"slab_rk4_kernels": "slab_rk4", "eqdsk_rk4_kernel": "eqdsk_rk4"}.get(name, name)
+    cfg, params, v0, st, pwr = _case(setups, CASES[base_case], save_trajectory=True, nstep_max=3)
     loop = ga.StaticAdjoint(cfg, params, v0, st)
+    # the card's pieces, on the host build of their library
     if kernels:
-        # the card's pieces, on the host build of their library
-        loop.slab = slab_vjp.SlabVJP(slab_vjp.load_host_library(), loop)
+        loop.kernels = slab_vjp.SlabVJP(slab_vjp.load_host_library(), loop)
+    if name == "eqdsk_rk4_kernel":
+        loop.kernels = eqdsk_step.EqdskStep(eqdsk_step.load_host_library(), loop)
     pieces = loop.functions()
-    assert kernels == (pieces["step"] == loop.step_slab) == (pieces["vjp"] == loop.vjp_slab)
+    side = loop.kernels
+    assert pieces == ({"step": loop.step, "vjp": loop.vjp} if side is None else
+                      {"step": side.step, "vjp": side.vjp if kernels else loop.vjp})
     audits = {n: (PieceAudit(), BackwardAudit()) for n in pieces}
     launched = collections.Counter()
 

@@ -98,7 +98,7 @@ def test_one_step_matches_generic_step(host_lib, where):
             loop.resid.copy_(traj0[..., 0])
             loop.k.fill_(k)
             loop.functions()["step"]()
-    assert kernel.functions()["step"] == kernel.step_slab
+    assert kernel.functions()["step"] == kernel.kernels.step
     assert int(kernel.k) == int(generic.k) == k + 1
     stepped = kernel.carry[5] != before[5]
     assert bool(stepped.any()) and (where != "some_stopped") == bool(stepped.all())

@@ -155,10 +155,10 @@ def _loop(cfg, params, v0, st, lib, step=False):
     with ``step`` its "step" piece that library's slab step too."""
     loop = ga.StaticAdjoint(cfg, params, v0, st)
     if lib is not None:
-        loop.slab = slab_vjp.SlabVJP(lib, loop)
+        loop.kernels = slab_vjp.SlabVJP(lib, loop)
         if not step:
             # the generic step piece beside the kernel's VJP
-            loop.functions = lambda: {"step": loop.step, "vjp": loop.vjp_slab}
+            loop.functions = lambda: {"step": loop.step, "vjp": loop.kernels.vjp}
     return loop
 
 
@@ -265,11 +265,11 @@ def test_one_step_matches_generic_vjp(host_lib, where):
             for a in loop.acc:
                 a.zero_()
             loop.k.fill_(k + 1)
-        if loop.slab is not None:
-            loop.slab.acc.zero_()
+        if loop.kernels is not None:
+            loop.kernels.start_backward()
         loop.functions()["vjp"]()
-        if loop.slab is not None:
-            loop.slab.reduce(loop.acc)
+        if loop.kernels is not None:
+            loop.kernels.finish_backward(loop.acc)
     assert bool(stepped.any()) and (where != "some_stopped") == bool(stepped.all())
     assert int(kernel.k) == int(generic.k) == k
     _assert_close(kernel.cot, generic.cot, GRAD_RTOL, where)
@@ -371,7 +371,7 @@ def test_gate(name):
     before = slab_vjp.LAUNCHES, slab_vjp.STEP_LAUNCHES
     p = _with_grad(params)
     loop = ga.StaticAdjoint(cfg, p, v0, st)
-    assert loop.slab is None and loop.functions() == {"step": loop.step, "vjp": loop.vjp}
+    assert loop.kernels is None and loop.functions() == {"step": loop.step, "vjp": loop.vjp}
     loss = _weighted_loss(ga.trace_batch_static_adjoint(cfg, p, v0, st, pwr, loop=loop))
     torch.autograd.grad(loss, [t for t in tree_leaves(p) if t.is_floating_point()])
     assert (slab_vjp.LAUNCHES, slab_vjp.STEP_LAUNCHES) == before
@@ -390,7 +390,7 @@ def test_opened_gate_takes_both_kernels(host_lib, monkeypatch, name):
     monkeypatch.setattr(slab_vjp, "takes", lambda cfg_, dev: gate(cfg_, "cuda"))
     monkeypatch.setattr(slab_vjp, "load_library", lambda dtype, ns: (host_lib, ""))
     opened = ga.StaticAdjoint(cfg, _with_grad(params), v0, st)
-    assert (opened.slab is not None) == takes
+    assert (opened.kernels is not None) == takes
     assert opened.functions() == (
-        {"step": opened.step_slab, "vjp": opened.vjp_slab} if takes
+        {"step": opened.kernels.step, "vjp": opened.kernels.vjp} if takes
         else {"step": opened.step, "vjp": opened.vjp})
