@@ -15,6 +15,13 @@ The binning holds a (rays, segments, bins) tensor: 3.4 GB at float64 for
 So rays go through in chunks of at most ``CHUNK_ELEMENTS`` such elements,
 each chunk under ``torch.utils.checkpoint`` when gradients are on: the
 backward pass keeps only the chunk's inputs and rebuilds the rest.
+
+While spans record (utils/spans.py), the profile's forward is the span
+``rays.post.deposition`` and its backward ``rays.post.deposition.backward``,
+both with CUDA events on the card: the second opens when the profile's
+gradient arrives and closes when the gradient into the trajectory's power
+and coordinate is complete, by two identity autograd nodes around the
+chunk loop (``_GradientArrives``, ``_GradientComplete``).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 import torch.utils.checkpoint
 
 from rays_tpu_torch.ops import binning
+from rays_tpu_torch.utils import spans
 
 # (rays x segments x bins) elements binned at once: 256 MB at float64
 CHUNK_ELEMENTS = 1 << 25
@@ -86,28 +94,82 @@ def calculate_deposition_profile(cfg, params, results, which: str,
     pwr = results.initial_ray_power     # (B,)
     B, n_pts = ray_vec.shape[0], ray_vec.shape[1]
 
-    valid = torch.arange(n_pts, device=ray_vec.device) < npoints[:, None]
-    last = (npoints.to(torch.int64) - 1)[:, None]
-    xs = coord(ray_vec[..., 0:3])
-    Q = pwr[:, None] * ray_vec[..., slot]
-    # freeze beyond the last valid point: constant Q, constant x -> dQ = 0
-    xs = torch.where(valid, xs, xs.gather(1, last))
-    Q = torch.where(valid, Q, Q.gather(1, last))
+    with spans.span("rays.post.deposition", ray_vec.device):
+        valid = torch.arange(n_pts, device=ray_vec.device) < npoints[:, None]
+        last = (npoints.to(torch.int64) - 1)[:, None]
+        xs = coord(ray_vec[..., 0:3])
+        Q = pwr[:, None] * ray_vec[..., slot]
+        # freeze beyond the last valid point: constant Q, constant x -> dQ = 0
+        xs = torch.where(valid, xs, xs.gather(1, last))
+        Q = torch.where(valid, Q, Q.gather(1, last))
 
-    def bin_rays(q, x):
-        return binning.bin_to_uniform_grid(q, x, xmin, xmax, n_bins).sum(0)
+        def bin_rays(q, x):
+            return binning.bin_to_uniform_grid(q, x, xmin, xmax, n_bins).sum(0)
 
-    grad = torch.is_grad_enabled() and (Q.requires_grad or xs.requires_grad)
-    chunk = max(1, CHUNK_ELEMENTS // max(1, (n_pts - 1) * n_bins))
-    total = None
-    for i in range(0, B, chunk):
-        q, x = Q[i:i + chunk], xs[i:i + chunk]
-        part = (torch.utils.checkpoint.checkpoint(bin_rays, q, x, use_reentrant=False)
-                if grad else bin_rays(q, x))
-        total = part if total is None else total + part
+        grad = torch.is_grad_enabled() and (Q.requires_grad or xs.requires_grad)
+        backward = _BackwardSpan(ray_vec.device) if grad and spans.on() else None
+        if backward is not None:
+            Q, xs = _GradientComplete.apply(backward, Q, xs)
+        chunk = max(1, CHUNK_ELEMENTS // max(1, (n_pts - 1) * n_bins))
+        total = None
+        for i in range(0, B, chunk):
+            q, x = Q[i:i + chunk], xs[i:i + chunk]
+            part = (torch.utils.checkpoint.checkpoint(bin_rays, q, x, use_reentrant=False)
+                    if grad else bin_rays(q, x))
+            total = part if total is None else total + part
+        if backward is not None:
+            total = _GradientArrives.apply(backward, total)
     edges = torch.linspace(xmin, xmax, n_bins + 1, dtype=ray_vec.dtype,
                            device=ray_vec.device)
     return DepositionProfile(name=which, grid=edges, profile=total)
+
+
+class _BackwardSpan:
+    """The span ``rays.post.deposition.backward`` of one profile, opened by
+    ``_GradientArrives`` and closed by ``_GradientComplete`` on the thread
+    that runs the backward, with the forward's call id."""
+
+    def __init__(self, device):
+        self.device, self.call, self.open = device, spans.current_call(), None
+
+    def enter(self):
+        self.open = spans.span("rays.post.deposition.backward", self.device, self.call)
+        self.open.__enter__()
+
+    def exit(self):
+        if self.open is not None:
+            self.open.__exit__(None, None, None)
+            self.open = None
+
+
+class _GradientArrives(torch.autograd.Function):
+    """Identity on the profile; its backward opens the backward span."""
+
+    @staticmethod
+    def forward(ctx, backward, profile):
+        ctx.backward = backward
+        return profile.view_as(profile)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.backward.enter()
+        return None, grad
+
+
+class _GradientComplete(torch.autograd.Function):
+    """Identity on the binned power and coordinate; its backward, which
+    runs once every chunk's gradient into them is summed, closes the
+    backward span."""
+
+    @staticmethod
+    def forward(ctx, backward, q, x):
+        ctx.backward = backward
+        return q.view_as(q), x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad_q, grad_x):
+        ctx.backward.exit()
+        return None, grad_q, grad_x
 
 
 def _profiles(cfg, params, results, n_bins):

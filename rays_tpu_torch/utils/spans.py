@@ -7,8 +7,8 @@ capture, a loop of graph replays.  ``span(name)`` is a context manager
 that records only while the record is on: while a ``torch.profiler``
 session runs (``torch.autograd._profiler_enabled()``), or inside ``with
 recording():``, which an operator opens to read phase times without the
-profiler's cost.  Off, ``span`` checks that flag and returns the shared
-no-op ``NOOP``; nothing else runs.
+profiler's cost.  Off, ``span`` checks that flag (``on()``) and returns the
+shared no-op ``NOOP``; nothing else runs.
 
 On, a span
 * enters ``torch.profiler.record_function(name)`` while a profiler runs,
@@ -147,12 +147,17 @@ class _Span:
         return None
 
 
+def on():
+    """Whether spans record now: a profiler runs or ``recording()`` is open."""
+    return bool(_recording or _profiler_enabled())
+
+
 def span(name, device=None, call=None):
     """A context manager around one phase named ``name`` (a static
     string); ``device``: stamp it with CUDA events on that device's
     current stream; ``call``: the call id to take instead of the
     enclosing span's."""
-    if not (_recording or _profiler_enabled()):
+    if not on():
         return NOOP
     return _Span(name, device, call)
 

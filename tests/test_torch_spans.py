@@ -3,8 +3,9 @@
 * Off (no profiler, no ``recording()``) a span is the shared no-op and a
   ``trace_rays`` call leaves the record empty.
 * Under ``recording()`` the dispatch, the graph route's loop, the
-  adjoint's forward and backward, a capture and the build of a G-EQDSK's
-  splines give their spans: nested
+  adjoint's forward and backward, a capture, the build of a G-EQDSK's
+  splines and the deposition profile's forward and backward give their
+  spans: nested
   under the span open on the thread, one call id per call (the backward
   takes its forward's), self times never negative; a reused loop's two
   backwards each replay their forward under ``rays.adjoint.reforward``.
@@ -26,6 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from rays_tpu_torch import examples as tex
 from rays_tpu_torch.core.types import tree_leaves, tree_map
+from rays_tpu_torch.post import deposition
 from rays_tpu_torch.tracing import fused_slab, graphed, graphed_adjoint as ga
 from rays_tpu_torch.tracing import trace as ttrace
 from rays_tpu_torch.utils import spans
@@ -44,6 +46,29 @@ def empty_record():
 def slab():
     cfg, params, v0, st, pwr = tex.setup_example(tex.SLAB_ECH_90GHZ, device="cpu")
     return dataclasses.replace(cfg, nstep_max=STEPS), params, v0, st, pwr
+
+
+@pytest.fixture(scope="module")
+def damped():
+    """The damped slab at ten times its step: its rays reach the resonance
+    and deposit power within 40 steps."""
+    text = tex.SLAB_ECH_DAMPED.replace("ds=2.5e-3", "ds=2.5e-2")
+    cfg, params, v0, st, pwr = tex.setup_example(text, device="cpu")
+    return dataclasses.replace(cfg, nstep_max=40, save_trajectory=True), params, v0, st, pwr
+
+
+def _deposition_step(case):
+    """(profile, loss, gradients of the floating leaves) of the training
+    step's deposition loss on the plain route."""
+    cfg, params, v0, st, pwr = case
+    p = _with_grad(params)
+    res = ttrace.trace_rays(cfg, p, v0, st, pwr)
+    prof = deposition.calculate_deposition_profile(cfg, p, res, "Ptotal_x", n_bins=32,
+                                                   xmin=-0.5, xmax=0.5)
+    loss = _loss(res, pwr) + (prof.profile ** 2).sum()
+    leaves = [t for t in tree_leaves(p) if t.is_floating_point()]
+    return prof.profile, loss, torch.autograd.grad(loss, leaves, allow_unused=True,
+                                                   materialize_grads=True)
 
 
 def _with_grad(params):
@@ -166,6 +191,47 @@ def test_results_equal_on_and_off(slab, path):
     assert spans.records()
     for a, b in zip(off, on):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_deposition_spans_share_the_call(damped):
+    """The profile's forward is ``rays.post.deposition`` under the span open
+    around it; its backward ``rays.post.deposition.backward``, with the
+    forward's call id, after the forward and before the gradient returns;
+    the profile, the loss and every gradient bit for bit those with the
+    record off."""
+    off = _deposition_step(damped)
+    with spans.recording(), spans.span("rays.test.call"):
+        on = _deposition_step(damped)
+    recs = spans.records()
+    (outer,) = _named(recs, "rays.test.call")
+    (fwd,) = _named(recs, "rays.post.deposition")
+    (bwd,) = _named(recs, "rays.post.deposition.backward")
+    (trace_span,) = _named(recs, "rays.trace_rays.plain")
+    assert fwd.parent == outer.id and fwd.call == outer.call
+    assert trace_span.end_ns <= fwd.start_ns < fwd.end_ns <= bwd.start_ns < bwd.end_ns
+    assert bwd.call == outer.call and bwd.end_ns <= outer.end_ns
+    assert spans.current_call() is None
+    assert float(off[0].detach().abs().sum()) > 0.0
+    for a, b in zip([off[0], off[1], *off[2]], [on[0], on[1], *on[2]]):
+        assert torch.equal(a, b)
+
+
+def test_deposition_off_adds_no_node(damped):
+    """With the record off the profile is the chunk sum itself (no span
+    node in its graph) and nothing is recorded; without gradients the
+    forward span alone is recorded."""
+    cfg, params, v0, st, pwr = damped
+    res = ttrace.trace_rays(cfg, _with_grad(params), v0, st, pwr)
+    prof = deposition.calculate_deposition_profile(cfg, params, res, "Ptotal_x", n_bins=32,
+                                                   xmin=-0.5, xmax=0.5)
+    assert "Gradient" not in type(prof.profile.grad_fn).__name__
+    assert spans.records() == []
+    with torch.no_grad():
+        res = ttrace.trace_rays(*damped)
+    with spans.recording():
+        deposition.calculate_deposition_profile(cfg, params, res, "Ptotal_x", n_bins=32,
+                                                xmin=-0.5, xmax=0.5)
+    assert [r.name for r in spans.records()] == ["rays.post.deposition"]
 
 
 def test_kernel_launch_span(slab):
